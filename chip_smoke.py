@@ -10,12 +10,26 @@ Phases, each printed as it runs; any failure ends the run non-zero:
   3. K1 on the card against its plain PyTorch version, every transform
      type and size, forward and inverse, with inputs that wrap int32;
      both timed at the main path's shape;
-  4. main path: 8 frames of 768x512 4:2:0 8-bit through
+  4. own-format path: 8 frames of 768x512 4:2:0 8-bit through
      libavif_tpu_torch.api.encode_batch(quality=75, speed=6,
      codec="native"), counting K1 launches;
   5. the same first frame encoded on the CPU (plain versions): the .avif
      bytes must be identical;
-  6. round trip: decode on the card, equal to the CPU decode; Y-PSNR.
+  6. round trip: decode on the card, equal to the CPU decode; Y-PSNR;
+  7. RD tables: frame 0's luma plane through the spec encoder's RD
+     pre-pass on the card and on the CPU; satd/delta equal (torch.equal),
+     dist/rate within the CPU test's tolerance, the count of qcost
+     entries that differ; the program timed on both;
+  8. spec main path: the 8 frames through encode_batch(quality=75,
+     speed=6) with the default codec (spec AV1), counting the RD
+     program's runs on the card (one per frame); the RD program alone
+     for the 8 frames, for the RD/host split;
+  9. conformance and round trip: the card's files decoded by the port's
+     decode equal the shared spec decoder's output; against the same
+     frames encoded on the CPU with the RD program off (numpy planner),
+     size within 10% and Y-PSNR within 0.3 dB per frame;
+ 10. alpha: one frame with a non-opaque alpha plane, encoded on the
+     card; the alpha item is written and read back.
 
 The last two lines are a JSON object describing each kernel, then
 {"ok": true, "device": {...}}.
@@ -117,6 +131,58 @@ def check_k1(cuda_kernels, tables, dev):
     return worst
 
 
+def table_diffs(layout, got: np.ndarray, want: np.ndarray):
+    """satd/delta exact (torch.equal); dist/rate: rtol 1e-5 (1e-4 for the
+    dist of 64x64 transforms) for all but 1 in 1000 entries, the
+    tolerance of tests/test_torch_rdsearch_device.py. Returns (entries
+    outside rtol, dist/rate entries, max relative difference)."""
+    off, total, worst = 0, 0, 0.0
+    for kind, key, _shape, lo, hi in layout:
+        a, b = torch.from_numpy(got[lo:hi]), torch.from_numpy(want[lo:hi])
+        if kind in ("satd", "delta"):
+            if not torch.equal(a, b):
+                raise AssertionError(f"RD {kind} table px={key} differs between card and CPU")
+            continue
+        rel = (a - b).abs() / b.abs().clamp_min(1e-30)
+        rtol = 1e-4 if kind == "dist" and key > 32 else 1e-5
+        off += int((rel > rtol).sum())
+        total += hi - lo
+        worst = max(worst, float(rel.max()))
+    if off > total // 1000:
+        raise AssertionError(f"{off} of {total} RD dist/rate entries outside tolerance")
+    return off, total, worst
+
+
+def y_psnr(decoded, source) -> float:
+    err = decoded.yuv_planes[0].astype(np.float64) - source.yuv_planes[0]
+    return 10 * np.log10(255.0**2 / max(np.mean(err * err), 1e-12))
+
+
+def check_rd_tables(rdsearch_device, luma, qindex, dev, smi):
+    """Phase 7: the RD pre-pass on the card against the CPU."""
+    card = rdsearch_device.dispatch_plan_costs(luma, qindex, SPEED, 8, dev)
+    cpu = rdsearch_device.dispatch_plan_costs(luma, qindex, SPEED, 8, "cpu")
+    off, total, worst = table_diffs(card.meta["layout"], card.flat(), cpu.flat())
+    qc_card = rdsearch_device.materialize_plan_costs(card)["qcost"]
+    qc_cpu = rdsearch_device.materialize_plan_costs(cpu)["qcost"]
+    qdiff = sum(int((qc_card[t][m] != qc_cpu[t][m]).sum()) for t in qc_cpu for m in qc_cpu[t])
+    qtotal = sum(qc_cpu[t][m].size for t in qc_cpu for m in qc_cpu[t])
+    print(f"[rd] {W}x{H} s{SPEED} q{qindex}: satd/delta equal card vs CPU (torch.equal); "
+          f"dist/rate {off} of {total} outside rtol, max rel diff {worst:.3e}; "
+          f"qcost entries differing {qdiff} of {qtotal}", flush=True)
+
+    def run():
+        rdsearch_device.dispatch_plan_costs(luma, qindex, SPEED, 8, dev)
+
+    card_ms = time_ms(run, 10)
+    t0 = time.perf_counter()
+    for _ in range(2):
+        rdsearch_device.dispatch_plan_costs(luma, qindex, SPEED, 8, "cpu").flat()
+    cpu_ms = (time.perf_counter() - t0) / 2 * 1e3
+    print(f"[rd] program per frame: card {card_ms:.3f} ms (CUDA events, 10 runs) on {smi}; "
+          f"CPU {cpu_ms:.3f} ms (host clock, 2 runs) on the same machine", flush=True)
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -129,8 +195,13 @@ def main() -> int:
           f"python {sys.version.split()[0]} devices {torch.cuda.device_count()}", flush=True)
     dev = torch.device("cuda", 0)
 
+    from libavif_tpu.containers.parse import parse as parse_container
+    from libavif_tpu.containers.parse import read_item_payload
     from libavif_tpu_torch import tables
     from libavif_tpu_torch.api import decode, encode_batch
+    from libavif_tpu_torch.codec.av1 import rdsearch_device
+    from libavif_tpu_torch.codec.av1.still import decode_still
+    from libavif_tpu_torch.codec.frame import FrameParams, _spec_qindex
     from libavif_tpu_torch.ops import _build, cuda_kernels
 
     # 2. build
@@ -164,7 +235,7 @@ def main() -> int:
     print(f"[k1] B={b} n={n} forward DCT: kernel {k_ms:.5f} ms, plain {p_ms:.5f} ms "
           f"(runs {k1:.5f}/{k2:.5f} vs {p1:.5f}/{p2:.5f}) on {smi}", flush=True)
 
-    # 4. main path
+    # 4. own-format path
     imgs = gradient_frames()
     t0 = time.perf_counter()
     encode_batch(imgs[:1], quality=QUALITY, speed=SPEED, codec="native", device=dev)
@@ -208,6 +279,82 @@ def main() -> int:
         raise AssertionError(f"Y-PSNR {psnr:.2f} dB is too low for q{QUALITY}")
     print(f"[decode] card decode {gpu_dec_s:.3f} s equals CPU decode; Y-PSNR {psnr:.4f} dB",
           flush=True)
+
+    # 7. RD tables, card against CPU
+    qindex = _spec_qindex(FrameParams(quality=QUALITY))
+    check_rd_tables(rdsearch_device, np.asarray(imgs[0].yuv_planes[0], np.int32), qindex, dev, smi)
+
+    # 8. spec main path (the default codec)
+    runs = rdsearch_device.dispatch_plan_costs.runs
+    cuda_kernels.transform_2d.launches = 0
+    runs.clear()
+    t0 = time.perf_counter()
+    spec_files = encode_batch(imgs, quality=QUALITY, speed=SPEED, device=dev)
+    torch.cuda.synchronize()
+    spec_s = time.perf_counter() - t0
+    if runs["cuda"] != BATCH or runs["cpu"] != 0:
+        raise AssertionError(f"RD program runs {dict(runs)}, expected {BATCH} on cuda")
+    spec_k1, spec_runs = cuda_kernels.transform_2d.launches, runs["cuda"]
+    t0 = time.perf_counter()
+    handles = [rdsearch_device.dispatch_plan_costs(np.asarray(im.yuv_planes[0], np.int32),
+                                                   qindex, SPEED, 8, dev) for im in imgs]
+    for h in handles:
+        rdsearch_device.materialize_plan_costs(h)
+    rd_s = time.perf_counter() - t0
+    print(f"[spec] {BATCH} x {W}x{H} q{QUALITY} s{SPEED} default codec: {spec_s:.3f} s, "
+          f"{BATCH * W * H / 1e6 / spec_s:.4f} MP/s, RD program runs on cuda {spec_runs}, "
+          f"K1 launches {spec_k1}, {sum(map(len, spec_files))} bytes; RD program alone for the "
+          f"{BATCH} frames {rd_s:.3f} s (host encode about {spec_s - rd_s:.3f} s); on {smi}",
+          flush=True)
+
+    # 9. conformance and round trip
+    t0 = time.perf_counter()
+    for data in spec_files:
+        decode(data, device=dev)
+    dec_s = time.perf_counter() - t0
+    print(f"[conform] decode of the {BATCH} spec files (host): {dec_s:.3f} s, "
+          f"{BATCH * W * H / 1e6 / dec_s:.4f} MP/s", flush=True)
+    t0 = time.perf_counter()
+    cpu_min_pels = rdsearch_device.MIN_PELS
+    rdsearch_device.MIN_PELS = W * H + 1  # the numpy planner on the CPU
+    numpy_files = encode_batch(imgs, quality=QUALITY, speed=SPEED, device="cpu")
+    rdsearch_device.MIN_PELS = cpu_min_pels
+    cpu_s = time.perf_counter() - t0
+    same_bytes = 0
+    for i, (data, ref) in enumerate(zip(spec_files, numpy_files)):
+        meta = parse_container(data).meta
+        planes, _, _ = decode_still(read_item_payload(meta, meta.items[meta.primary_item_id], data))
+        dec = decode(data, device=dev)
+        for c in range(3):
+            if not np.array_equal(dec.yuv_planes[c], planes[c][: H >> (c > 0), : W >> (c > 0)]):
+                raise AssertionError(f"frame {i} plane {c}: decode differs from the spec decoder")
+        p_card, p_cpu = y_psnr(dec, imgs[i]), y_psnr(decode(ref, device="cpu"), imgs[i])
+        if not (abs(len(data) - len(ref)) < 0.1 * len(ref) and abs(p_card - p_cpu) < 0.3):
+            raise AssertionError(f"frame {i}: {len(data)} bytes {p_card:.4f} dB on the card vs "
+                                 f"{len(ref)} bytes {p_cpu:.4f} dB with the numpy planner")
+        same_bytes += data == ref
+        print(f"[conform] frame {i}: {len(data)} vs {len(ref)} bytes, Y-PSNR {p_card:.4f} vs "
+              f"{p_cpu:.4f} dB (card RD vs CPU numpy planner)", flush=True)
+    print(f"[conform] {BATCH} frames decode as the spec decoder does; {same_bytes} of {BATCH} "
+          f"files byte-identical to the numpy planner's; CPU encode {cpu_s:.3f} s", flush=True)
+
+    # 10. alpha
+    img = imgs[0]
+    yy, xx = np.mgrid[0:H, 0:W]
+    img.alpha_plane = ((xx + yy) % 256).astype(np.uint8)
+    runs.clear()
+    [alpha_file] = encode_batch([img], quality=QUALITY, speed=SPEED, device=dev)
+    meta = parse_container(alpha_file).meta
+    aux = [it for it in meta.items.values() if it.aux_for_id == meta.primary_item_id]
+    dec = decode(alpha_file, device=dev)
+    if len(aux) != 1 or dec.alpha_plane is None or dec.alpha_plane.shape != (H, W):
+        raise AssertionError("the alpha item was not written or not read back")
+    aerr = dec.alpha_plane.astype(np.float64) - img.alpha_plane
+    apsnr = 10 * np.log10(255.0**2 / max(np.mean(aerr * aerr), 1e-12))
+    if runs["cuda"] != 2 or not apsnr > 30:
+        raise AssertionError(f"alpha: RD runs {dict(runs)}, alpha PSNR {apsnr:.2f} dB")
+    print(f"[alpha] alpha item written and read back: {len(alpha_file)} bytes, alpha PSNR "
+          f"{apsnr:.4f} dB, RD program runs on cuda {runs['cuda']} (color + alpha)", flush=True)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": [{

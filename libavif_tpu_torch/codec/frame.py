@@ -1,8 +1,16 @@
-"""Frame-level codec seam for the own-format codec: Image planes ⇄ OBU stream.
+"""Frame-level codec seam: Image planes ⇄ OBU stream.
 
-Port of the own-format branch of ``libavif_tpu/codec/frame.py``. The OBU
-stream is a standard AV1 sequence-header OBU followed by one OBU_FRAME
-whose payload is the codec's own frame format:
+Port of ``libavif_tpu/codec/frame.py`` for stills. Two codecs sit behind
+it, chosen by ``FrameParams.codec``:
+
+- ``"auto"`` (the default) and ``"spec"``: spec-conformant AV1, which
+  every AVIF decoder reads. The encoder and decoder are the shared host
+  code of ``codec/av1/`` (see its package docstring); the one device
+  program is the RD pre-pass (``av1/rdsearch_device.py``), dispatched for
+  every large enough frame of a batch before the host encodes any.
+- ``"native"``: the own format. The OBU stream is a standard AV1
+  sequence-header OBU followed by one OBU_FRAME whose payload is the
+  codec's own frame format:
 
   u8  magic (FRAME_MAGIC)
   u8  qindex
@@ -12,8 +20,8 @@ whose payload is the codec's own frame format:
     leb128 plane-payload size + plane payload (leb128 tile count,
     per-tile sizes, msac tile payloads)
 
-Batches pipeline device and host: every frame's device work is enqueued
-first, each result is copied to pinned host memory behind a per-frame
+Own-format batches pipeline device and host: every frame's device work
+is enqueued first, each result is copied to pinned host memory behind a per-frame
 CUDA event, and the host thread pool entropy-codes each frame's tiles as
 soon as its event completes, overlapping the remaining device work.
 """
@@ -40,6 +48,7 @@ from libavif_tpu.containers.obu import (
     OBU_FRAME,
     OBU_SEQUENCE_HEADER,
     SequenceHeader,
+    find_sequence_header,
     parse_sequence_header,
     read_leb128,
     split_obus,
@@ -54,6 +63,9 @@ from .. import default_device
 from ..ops.filters import cdef_threshold, deblock_threshold
 from ..ops.quant import quality_to_qindex, step_sizes
 from . import entropy, recon
+from .av1 import encode as av1_encode
+from .av1 import rdsearch_device, still
+from .transfer import finish_fetch, start_fetch, upload
 
 FRAME_MAGIC = 0x5A
 DEFAULT_TX_SIZE = 16
@@ -61,18 +73,24 @@ DEFAULT_TX_SIZE = 16
 
 @dataclasses.dataclass
 class FrameParams:
-    """Codec-facing settings of the own-format codec."""
+    """Codec-facing settings (the avifEncoder quality/speed subset)."""
 
     quality: int = 60
     speed: int = 6
     tx_size: int = DEFAULT_TX_SIZE
     deblock: bool | None = None  # None: auto (on at quality <= 50)
     cdef: bool | None = None  # None: auto (on for lossy)
-    # Only the own format is ported; "auto"/"spec" (spec-conformant AV1)
-    # are ROADMAP.md queue 1, 'Alpha and the spec-AV1 path'.
-    codec: str = "native"
-    # search breadth overrides (mode-breadth 1-13, tx-breadth 1-5) and a
-    # direct quantizer override (aom cq-level, 0-63)
+    # "auto"/"spec": spec-conformant AV1, lossy and lossless; "native":
+    # the own format
+    codec: str = "auto"
+    # AV1 tile grid of the spec codec (avifEncoder tileRowsLog2,
+    # tileColsLog2, autoTiling); max_threads bounds auto-tiling
+    tile_rows_log2: int = 0
+    tile_cols_log2: int = 0
+    auto_tiling: bool = False
+    max_threads: int = 8
+    # search breadth overrides of the own format (mode-breadth 1-13,
+    # tx-breadth 1-5) and a direct quantizer override (aom cq-level, 0-63)
     mode_breadth: int | None = None
     tx_breadth: int | None = None
     cq_level: int | None = None
@@ -162,45 +180,137 @@ def _workers() -> int:
     return max(2, min(16, os.cpu_count() or 4))
 
 
-def _require_native(codec: str) -> None:
-    if codec != "native":
-        raise NotImplementedError(
-            f"codec={codec!r}: only the own-format codec is ported; the spec-AV1 "
-            "codec is ROADMAP.md queue 1, 'Alpha and the spec-AV1 path'"
-        )
+# -------------------------------------------------------- spec-AV1 encode
 
 
-# ------------------------------------------------------- device <-> host
+def _spec_av1_enabled(codec: str) -> bool:
+    return codec in ("spec", "auto")
 
 
-def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    t = torch.from_numpy(arr)
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
+def _tile_config(params: FrameParams, width: int, height: int) -> tuple[int, int]:
+    """(tile_cols_log2, tile_rows_log2): the explicit log2s, or the
+    reference's auto-tiling rule (>= 512x512 pels per tile, <= 32 tiles,
+    <= threads, near-square tiles, more columns than rows when landscape)."""
+    if not params.auto_tiling:
+        return params.tile_cols_log2, params.tile_rows_log2
+    threads = max(1, params.max_threads)
+    if threads <= 1:
+        return 0, 0
+    tiles = min((width * height + 512 * 512 - 1) // (512 * 512), 32, threads)
+    tiles_log2 = max(tiles, 1).bit_length() - 1
+    dim1, dim2 = (width, height) if width >= height else (height, width)
+    diff_log2 = max(dim1 // dim2, 1).bit_length() - 1
+    sub = max(tiles_log2 - diff_log2, 0)
+    d2 = sub // 2
+    d1 = tiles_log2 - d2
+    return (d1, d2) if width >= height else (d2, d1)
 
 
-def _start_fetch(result: torch.Tensor):
-    """Begin the copy of a device result to the host; returns a handle for
-    ``_finish_fetch``. On CUDA the copy goes to pinned memory behind an
-    event, so later frames' device work is not held up."""
-    if result.device.type != "cuda":
-        return result, None
-    host = torch.empty(result.shape, dtype=result.dtype, pin_memory=True)
-    host.copy_(result, non_blocking=True)
-    event = torch.cuda.Event()
-    event.record(torch.cuda.current_stream(result.device))
-    return host, event
+def _spec_qindex(params: FrameParams) -> int:
+    """quality -> base_q_idx on the reference's quantizer scale (0-63,
+    times 4); cq_level overrides it."""
+    quantizer = ((100 - params.quality) * 63 + 50) // 100
+    qindex = max(1, min(255, quantizer * 4))
+    if params.cq_level is not None:
+        qindex = max(1, min(255, int(params.cq_level) * 4))
+    return qindex
 
 
-def _finish_fetch(handle) -> np.ndarray:
-    host, event = handle
-    if event is not None:
-        event.synchronize()
-    return host.numpy()
+def _looks_like_screen_content(y: np.ndarray) -> bool:
+    """Screen-content detector: sample 16x16 blocks; when at least half
+    have <= 8 distinct values, the planner may code palette and intrabc
+    blocks."""
+    h, w = y.shape
+    if h < 32 or w < 32:
+        return False
+    ys = (h - 16) // 16 * 16
+    xs = (w - 16) // 16 * 16
+    b = np.asarray(y[:ys + 16, :xs + 16])
+    t = b[: ys + 16 - (ys + 16) % 16, : xs + 16 - (xs + 16) % 16]
+    bh, bw = t.shape[0] // 16, t.shape[1] // 16
+    blocks = t.reshape(bh, 16, bw, 16).transpose(0, 2, 1, 3).reshape(-1, 256)
+    s = np.sort(blocks, axis=1)
+    ncolors = 1 + (s[:, 1:] != s[:, :-1]).sum(axis=1)
+    return float((ncolors <= 8).mean()) >= 0.5
 
 
-# ---------------------------------------------------------------- encode
+def _spec_signalling(image: Image) -> dict:
+    """Sequence-header fields both spec encoders take from the image."""
+    info = pixel_format_info(image.yuv_format)
+    return dict(
+        monochrome=info.monochrome,
+        subsampling_x=info.chroma_shift_x,
+        subsampling_y=info.chroma_shift_y,
+        bit_depth=image.depth,
+        color_primaries=int(image.color_primaries),
+        transfer_characteristics=int(image.transfer_characteristics),
+        matrix_coefficients=int(image.matrix_coefficients),
+        color_range=1 if image.yuv_range == Range.FULL else 0,
+    )
+
+
+def _encode_frame_spec_lossless(image: Image, params: FrameParams) -> tuple[bytes, SequenceHeader]:
+    tcl, trl = _tile_config(params, image.width, image.height)
+    planes = [image.yuv_planes[c] for c in range(_coded_planes(image))]
+    payload = av1_encode.encode_lossless_still(
+        planes, tile_cols_log2=tcl, tile_rows_log2=trl, **_spec_signalling(image)
+    )
+    return payload, find_sequence_header(payload)
+
+
+def _encode_frame_spec_lossy(image: Image, params: FrameParams,
+                             dev_handle=None) -> tuple[bytes, SequenceHeader]:
+    """Spec-conformant lossy AV1 (the shared RD-search encoder). With
+    ``dev_handle`` the luma planner reads its cost tables from the RD
+    pre-pass dispatched for this frame."""
+    planes = [image.yuv_planes[c] for c in range(_coded_planes(image))]
+    tcl, trl = _tile_config(params, image.width, image.height)
+    # encoder-side CDEF strength search, off only at the realtime speeds
+    cdef_on = params.cdef is not False and params.speed <= 8
+    scc = params.speed <= 8 and _looks_like_screen_content(planes[0])
+    payload = av1_encode.encode_lossy_still(
+        planes, _spec_qindex(params), speed=params.speed,
+        enable_cdef=cdef_on, cdef_search=cdef_on,
+        enable_deblock=params.deblock is not False,
+        allow_scc=scc,
+        # block-copy dedup: like aom's screen path it trades the in-loop
+        # filters (disabled under intrabc) for exact copies
+        allow_intrabc=scc,
+        tile_cols_log2=tcl,
+        tile_rows_log2=trl,
+        dev_handle=dev_handle,
+        **_spec_signalling(image),
+    )
+    return payload, find_sequence_header(payload)
+
+
+def _encode_spec(images: list[Image], params: FrameParams,
+                 device: torch.device) -> list[tuple[bytes, SequenceHeader]]:
+    """Spec-AV1 batch. Lossy frames at speed <= 6 first get their RD
+    pre-pass dispatched on ``device``, all frames before any host encode,
+    so the device work of frame k+1 overlaps the host encode of frame k."""
+    if params.lossless:
+        return [_encode_frame_spec_lossless(im, params) for im in images]
+    handles = [None] * len(images)
+    if params.speed <= 6:
+        qindex = _spec_qindex(params)
+        handles = [
+            rdsearch_device.dispatch_plan_costs(
+                np.asarray(im.yuv_planes[0], dtype=np.int32), qindex, params.speed, im.depth, device
+            )
+            for im in images
+        ]
+    out = []
+    for k, (image, handle) in enumerate(zip(images, handles)):
+        out.append(_encode_frame_spec_lossy(image, params, dev_handle=handle))
+        # the shared planner turns a failure to read the tables into its
+        # numpy path; here it is an error
+        if handle is not None and not handle.used:
+            raise RuntimeError(f"frame {k}: the RD pre-pass tables were not read")
+    return out
+
+
+# ------------------------------------------------------ own-format encode
 
 
 def _submit_plane_encode(pool, levels, modes, txs, n: int):
@@ -228,10 +338,12 @@ def _assemble_plane_payload(futs) -> bytes:
 
 def encode_frames_pipelined(images: list[Image], params: FrameParams,
                             device=None) -> list[tuple[bytes, SequenceHeader]]:
-    """Batch still encode with device/host pipelining. Returns one
-    (obu_bytes, sequence_header) per image."""
-    _require_native(params.codec)
+    """Batch still encode with device/host pipelining, through the codec
+    that ``params.codec`` selects. Returns one (obu_bytes,
+    sequence_header) per image."""
     device = torch.device(device) if device is not None else default_device()
+    if _spec_av1_enabled(params.codec):
+        return _encode_spec(images, params, device)
     n = params.tx_size
     lossless = params.lossless
     staged = []
@@ -257,18 +369,18 @@ def encode_frames_pipelined(images: list[Image], params: FrameParams,
     for hdr, geoms, depth, packed in staged:
         dc, ac = (1, 1) if lossless else step_sizes(params.qindex, depth)
         result = recon.encode_frame_device(
-            _upload(packed, device), dc, ac, geoms=geoms, n=n, depth=depth,
+            upload(packed, device), dc, ac, geoms=geoms, n=n, depth=depth,
             lossless=lossless, speed=params.speed,
             search=(params.mode_breadth, params.tx_breadth),
         )
-        fetches.append(_start_fetch(result))
+        fetches.append(start_fetch(result))
 
     # Drain in order: every tile of every frame goes to one host pool as
     # soon as its frame's copy lands.
     with ThreadPoolExecutor(_workers()) as pool:
         futures = []
         for (_, geoms, _, _), handle in zip(staged, fetches):
-            result = _finish_fetch(handle)
+            result = finish_fetch(handle)
             off = 0
             frame_futs = []
             for rb, cb in geoms:
@@ -304,6 +416,14 @@ def encode_frames_pipelined(images: list[Image], params: FrameParams,
             write_obu(s, OBU_FRAME, body.data())
             out.append((s.data(), hdr))
     return out
+
+
+def encode_frame(image: Image, params: FrameParams, device=None) -> tuple[bytes, SequenceHeader]:
+    """Encode one still frame: a batch of one. Returns (obu_bytes,
+    sequence_header)."""
+    if image.depth not in (8, 10, 12):
+        raise AvifError(Result.UNSUPPORTED_DEPTH, f"depth {image.depth}")
+    return encode_frames_pipelined([image], params, device)[0]
 
 
 # ---------------------------------------------------------------- decode
@@ -373,28 +493,44 @@ class _FrameMeta:
     planes: list  # (payload, rb, cb, pw, ph) per coded plane
 
 
+def _is_spec_av1(data: bytes) -> bool:
+    """True for a spec-AV1 stream: one that splits frame header and tile
+    groups, or whose last OBU_FRAME does not carry FRAME_MAGIC."""
+    frame = None
+    for obu in split_obus(data):
+        if obu.obu_type == OBU_FRAME:
+            frame = obu
+        elif obu.obu_type in (3, 4):  # FRAME_HEADER / TILE_GROUP split
+            return True
+    return frame is not None and (not frame.payload or frame.payload[0] != FRAME_MAGIC)
+
+
+def _decode_frame_spec(data: bytes, width: int = 0, height: int = 0) -> Image:
+    """Decode a spec-AV1 still on the host (the shared ``codec/av1``
+    decoder); width/height override the frame size."""
+    planes, seq, hdr = still.decode_still(data)
+    out = _image_for_header(seq, width or hdr.width, height or hdr.height)
+    for c, plane in enumerate(planes):
+        ph, pw = out.yuv_planes[c].shape
+        out.yuv_planes[c][:, :] = plane[:ph, :pw].astype(out.dtype)
+    return out
+
+
 def _parse_own_format(data: bytes, width: int = 0, height: int = 0) -> _FrameMeta:
     """Split an own-format OBU stream into its frame header and plane
     payloads. Keeps the last (sequence header, frame) pair."""
     seq = None
     frame = None
-    foreign = False
     for obu in split_obus(data):
         if obu.obu_type == OBU_SEQUENCE_HEADER:
             seq = parse_sequence_header(obu.payload)
         elif obu.obu_type == OBU_FRAME:
             frame = obu
-        elif obu.obu_type in (3, 4):  # FRAME_HEADER / TILE_GROUP split
-            foreign = True
-    if foreign or (frame is not None and (not frame.payload or frame.payload[0] != FRAME_MAGIC)):
-        raise NotImplementedError(
-            "spec-AV1 payloads are not ported yet: ROADMAP.md queue 1, "
-            "'Alpha and the spec-AV1 path'"
-        )
     if seq is None or frame is None:
         raise AvifError(Result.BMFF_PARSE_FAILED, "missing sequence header or frame OBU")
     s = ROStream(frame.payload)
-    s.read_u8()  # magic
+    if s.read_u8() != FRAME_MAGIC:
+        raise AvifError(Result.BMFF_PARSE_FAILED, "bad frame magic")
     qindex = s.read_u8()
     n = 1 << s.read_u8()
     flags = s.read_u8()
@@ -418,9 +554,12 @@ def _parse_own_format(data: bytes, width: int = 0, height: int = 0) -> _FrameMet
 
 
 def decode_frames_pipelined(streams: list[bytes], device=None) -> list[Image]:
-    """Decode independent own-format OBU streams: host entropy for all
-    tiles on one pool, every frame's device work enqueued before any
-    fetch."""
+    """Decode independent OBU streams. Own-format batches pipeline: host
+    entropy for all tiles on one pool, every frame's device work enqueued
+    before any fetch. A batch with any spec-AV1 stream decodes one stream
+    at a time."""
+    if any(_is_spec_av1(d) for d in streams):
+        return [decode_frame(d, device=device) for d in streams]
     return _decode(
         [_parse_own_format(d) for d in streams],
         torch.device(device) if device is not None else default_device(),
@@ -428,8 +567,11 @@ def decode_frames_pipelined(streams: list[bytes], device=None) -> list[Image]:
 
 
 def decode_frame(data: bytes, width: int = 0, height: int = 0, device=None) -> Image:
-    """Decode one own-format OBU stream into an Image. width/height
-    override the sequence-header size (the container wins)."""
+    """Decode one OBU stream into an Image. width/height override the
+    sequence-header size (the container wins). A spec-AV1 stream decodes
+    on the host, whatever ``device`` is."""
+    if _is_spec_av1(data):
+        return _decode_frame_spec(data, width, height)
     return _decode(
         [_parse_own_format(data, width, height)],
         torch.device(device) if device is not None else default_device(),
@@ -466,16 +608,16 @@ def _decode(metas: list[_FrameMeta], device: torch.device) -> list[Image]:
             thresh = deblock_threshold(ac, depth) if m.deblock else 0
             cthresh = cdef_threshold(ac, depth) if m.cdef else 0
             result = recon.decode_frame_device(
-                _upload(np.concatenate(parts), device), dc, ac, thresh, cthresh,
+                upload(np.concatenate(parts), device), dc, ac, thresh, cthresh,
                 geoms=tuple((rb, cb) for _, rb, cb, _, _ in m.planes), n=m.n,
                 depth=depth, lossless=m.lossless,
                 deblock=m.deblock and thresh > 0, cdef=m.cdef and cthresh > 0,
             )
-            fetches.append(_start_fetch(result))
+            fetches.append(start_fetch(result))
 
     out = []
     for m, handle in zip(metas, fetches):
-        result = _finish_fetch(handle)
+        result = finish_fetch(handle)
         img = _image_for_header(m.seq, m.width, m.height)
         off = 0
         for c, (_, rb, cb, pw, ph) in enumerate(m.planes):

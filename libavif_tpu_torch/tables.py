@@ -4,7 +4,7 @@ Nothing in the codec is learned: every constant is built here by numpy
 from closed-form definitions, copied from the JAX package
 (``libavif_tpu/ops/transforms.py:48-111``, ``ops/intra.py:61-134``,
 ``ops/quant.py:23-83``, ``ops/filters.py:62-68,135-140``) rather than
-imported, because those modules import jax. ``tests/test_torch_tables.py``
+imported, because those modules depend on jax. ``tests/test_torch_tables.py``
 holds every array here equal to the JAX package's own.
 
 ``tables_to_device`` is the one way the tables reach a device: a dict of

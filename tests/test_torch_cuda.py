@@ -1,5 +1,6 @@
-"""Tests that need an NVIDIA GPU: K1 and the main path on the card,
-each held against the port's own plain PyTorch path on the CPU.
+"""Tests that need an NVIDIA GPU: K1, the own-format path and the spec
+path's RD pre-pass on the card, each held against the port's own plain
+PyTorch path on the CPU.
 
 They skip where ``torch.cuda.is_available()`` is false. This file imports
 no jax (the machine with the card has none), so on that machine it runs
@@ -16,6 +17,7 @@ from libavif_tpu.constants import PixelFormat
 from libavif_tpu.image import Image
 from libavif_tpu_torch import api, tables
 from libavif_tpu_torch.codec import recon
+from libavif_tpu_torch.codec.av1 import rdsearch_device
 from libavif_tpu_torch.ops import cuda_kernels
 
 _CASES = [
@@ -28,7 +30,7 @@ _CASES = [
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (K1 is a CUDA kernel with no CPU mode)")
+        pytest.skip("needs a CUDA device: these tests hold the card against the CPU")
     return torch.device("cuda", 0)
 
 
@@ -77,10 +79,51 @@ def test_encode_batch_bytes_on_card_equal_cpu(cuda):
     for p in img.yuv_planes:
         p[:] = rng.integers(0, 256, p.shape).astype(np.uint8)
     before = cuda_kernels.transform_2d.launches
-    on_card = api.encode_batch([img], quality=75, speed=6, device=cuda)
+    on_card = api.encode_batch([img], quality=75, speed=6, codec="native", device=cuda)
     assert cuda_kernels.transform_2d.launches > before
-    assert on_card == api.encode_batch([img], quality=75, speed=6, device="cpu")
+    assert on_card == api.encode_batch([img], quality=75, speed=6, codec="native", device="cpu")
     a = api.decode(on_card[0], device=cuda)
     b = api.decode(on_card[0], device="cpu")
     for pa, pb in zip(a.yuv_planes, b.yuv_planes):
         np.testing.assert_array_equal(pa, pb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("speed,bd", [(6, 8), (4, 10)])
+def test_rd_tables_on_card_equal_cpu(cuda, speed, bd):
+    """satd/delta exact; dist/rate with the tolerance of
+    tests/test_torch_rdsearch_device.py (fp32 sums in another order)."""
+    rng = np.random.default_rng(bd)
+    yy, xx = np.mgrid[0:512, 0:768]
+    src = (((yy * 3 + xx * 2) << (bd - 8)) + rng.integers(0, 40 << (bd - 8), yy.shape)) % (1 << bd)
+    src = src.astype(np.int32)
+    before = rdsearch_device.dispatch_plan_costs.runs["cuda"]
+    card = rdsearch_device.dispatch_plan_costs(src, 120, speed, bd, cuda)
+    assert rdsearch_device.dispatch_plan_costs.runs["cuda"] == before + 1
+    host = rdsearch_device.dispatch_plan_costs(src, 120, speed, bd, "cpu")
+    got, want = card.flat(), host.flat()
+    off, total = 0, 0
+    for kind, key, _shape, lo, hi in card.meta["layout"]:
+        if kind in ("satd", "delta"):
+            np.testing.assert_array_equal(got[lo:hi], want[lo:hi], err_msg=f"{kind} {key}")
+            continue
+        rtol = 1e-4 if kind == "dist" and key > 32 else 1e-5
+        off += int((np.abs(got[lo:hi] - want[lo:hi]) > rtol * np.abs(want[lo:hi])).sum())
+        total += hi - lo
+    assert off <= total // 1000
+
+
+@pytest.mark.cuda
+def test_spec_encode_on_card_runs_the_rd_program(cuda):
+    img = Image(512, 256, 8, PixelFormat.YUV420)
+    img.allocate_planes("yuv")
+    rng = np.random.default_rng(1)
+    for p in img.yuv_planes:
+        yy, xx = np.mgrid[0 : p.shape[0], 0 : p.shape[1]]
+        p[:] = ((yy + 2 * xx + rng.integers(0, 16, p.shape)) % 256).astype(np.uint8)
+    img.alpha_plane = rng.integers(0, 256, (256, 512)).astype(np.uint8)
+    before = rdsearch_device.dispatch_plan_costs.runs["cuda"]
+    [data] = api.encode_batch([img], quality=75, speed=6, device=cuda)
+    assert rdsearch_device.dispatch_plan_costs.runs["cuda"] == before + 2  # color and alpha
+    out = api.decode(data, device=cuda)
+    assert out.yuv_planes[0].shape == (256, 512) and out.alpha_plane.shape == (256, 512)

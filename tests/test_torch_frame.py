@@ -7,14 +7,7 @@ import pytest
 from libavif_tpu import api as japi
 from libavif_tpu.codec import frame as jframe
 from libavif_tpu.constants import PixelFormat
-from libavif_tpu.containers.obu import (
-    OBU_FRAME,
-    OBU_SEQUENCE_HEADER,
-    write_obu,
-    write_sequence_header,
-)
 from libavif_tpu.image import Image
-from libavif_tpu.utils.streams import RWStream
 from libavif_tpu_torch import api
 from libavif_tpu_torch.codec import frame
 
@@ -70,7 +63,7 @@ def test_encode_batch_bytes_and_decode_match_jax(quality):
 def test_other_formats_match_jax(depth, fmt, quality):
     # quality 40 turns the deblocking filter on as well as CDEF
     imgs = [_image(3, 40, 30, depth, fmt)]
-    ours = api.encode_batch(imgs, quality=quality, speed=6, device="cpu")
+    ours = api.encode_batch(imgs, quality=quality, speed=6, codec="native", device="cpu")
     assert ours == japi.encode_batch(imgs, quality=quality, speed=6, codec="native")
     _assert_same_image(api.decode(ours[0], device="cpu"), japi.decode(ours[0]))
 
@@ -85,7 +78,7 @@ def test_other_formats_match_jax(depth, fmt, quality):
 )
 def test_frame_layer_matches_jax(settings):
     imgs = [_image(4, 48, 32), _image(5, 48, 32)]
-    params = frame.FrameParams(**settings)
+    params = frame.FrameParams(codec="native", **settings)
     jparams = jframe.FrameParams(codec="native", **settings)
     ours = frame.encode_frames_pipelined(imgs, params, "cpu")
     ref = jframe.encode_frames_pipelined(imgs, jparams)
@@ -99,15 +92,13 @@ def test_frame_layer_matches_jax(settings):
 
 
 def test_unported_paths_raise():
-    img = _image(6, 16, 16)
+    # derived items: a grid primary item, and a 16-bit 'sato' still
+    grid = japi.Encoder().write_grid([_image(6, 64, 64), _image(7, 64, 64)], columns=2, rows=1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.encode_batch([img], codec="auto", device="cpu")
-    img.alpha_plane = np.zeros((16, 16), np.uint8)
+        api.decode(grid, device="cpu")
+    deep = Image(16, 16, 16, PixelFormat.YUV444)
+    deep.allocate_planes("yuv")
+    for c, plane in enumerate(deep.yuv_planes):
+        plane[:] = (np.arange(256).reshape(16, 16) * 251 + c * 999).astype(np.uint16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.encode_batch([img], device="cpu")
-    [(_, hdr)] = frame.encode_frames_pipelined([_image(7, 16, 16)], frame.FrameParams(), "cpu")
-    s = RWStream()
-    write_obu(s, OBU_SEQUENCE_HEADER, write_sequence_header(hdr))
-    write_obu(s, OBU_FRAME, b"\x10\x00\x00\x00")  # a frame that is not the own format
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        frame.decode_frame(s.data(), device="cpu")
+        api.decode(japi.Encoder().write(deep), device="cpu")

@@ -4,8 +4,14 @@ nothing it imports, attempts to import jax.
 A subprocess blocks jax (``sys.modules["jax"] = None``, so any import of
 it raises) and records every attempt with the module that made it. The
 only attempt allowed is the shared ``libavif_tpu/__init__.py``'s own
-guarded probe, which tolerates a missing jax. The subprocess then runs a
-32×32 encode and decode through the port.
+guarded probe, which tolerates a missing jax. The subprocess then runs,
+through the port, an own-format 32×32 encode and decode, and a spec-AV1
+encode with an alpha plane and the RD pre-pass on, and its decode.
+
+The spec codec's host code is the JAX package's ``codec/av1`` loaded by
+path (``libavif_tpu_torch/codec/av1/__init__.py``); the modules it
+reaches outside that directory are aliases of the JAX package's, and its
+``rdsearch_device`` is the port's.
 """
 
 import json
@@ -33,6 +39,7 @@ builtins.__import__ = _recording_import
 import numpy as np
 import libavif_tpu_torch
 from libavif_tpu_torch.api import decode, encode_batch
+from libavif_tpu_torch.codec.av1 import rdsearch_device
 from libavif_tpu_torch.ops import cuda_kernels, _build
 from libavif_tpu.constants import PixelFormat
 from libavif_tpu.image import Image
@@ -42,13 +49,22 @@ img.allocate_planes("yuv")
 rng = np.random.default_rng(0)
 for p in img.yuv_planes:
     p[:] = rng.integers(0, 256, p.shape).astype(np.uint8)
-data = encode_batch([img], quality=75, speed=6, device="cpu")[0]
+data = encode_batch([img], quality=75, speed=6, codec="native", device="cpu")[0]
 out = decode(data, device="cpu")
+
+rdsearch_device.MIN_PELS = 1
+img.alpha_plane = rng.integers(0, 256, (32, 32)).astype(np.uint8)
+spec = encode_batch([img], quality=75, speed=6, device="cpu")[0]
+spec_out = decode(spec, device="cpu")
 print(json.dumps({
     "attempts": attempts,
     "jax_modules": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
     "size": len(data),
     "shape": list(out.yuv_planes[0].shape),
+    "spec_size": len(spec),
+    "spec_shape": list(spec_out.yuv_planes[0].shape),
+    "alpha_shape": list(spec_out.alpha_plane.shape),
+    "rd_runs": rdsearch_device.dispatch_plan_costs.runs["cpu"],
 }))
 """
 
@@ -65,6 +81,46 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     assert set(result["attempts"]) <= {"libavif_tpu"}, result["attempts"]
     assert result["jax_modules"] == ["jax"]  # only the blocking None entry
     assert result["size"] > 0 and result["shape"] == [32, 32]
+    assert result["spec_size"] > 0 and result["spec_shape"] == [32, 32]
+    assert result["alpha_shape"] == [32, 32]
+    assert result["rd_runs"] == 2  # the color frame and the alpha frame
+
+
+@pytest.mark.parametrize(
+    "name",
+    ["constants", "containers", "containers.obu", "models", "models.av1",
+     "models.av1.msac", "utils", "utils.streams", "native"],
+)
+def test_shared_modules_are_aliases_not_copies(name):
+    import importlib
+
+    import libavif_tpu_torch.codec.av1  # noqa: F401  (installs the aliases)
+
+    assert importlib.import_module(f"libavif_tpu_torch.{name}") is importlib.import_module(
+        f"libavif_tpu.{name}"
+    )
+
+
+def test_shared_planner_reaches_the_ports_rd_program(monkeypatch):
+    import numpy as np
+
+    from libavif_tpu_torch.codec.av1 import rdsearch, rdsearch_device
+
+    assert rdsearch_device.__file__.startswith(str(REPO / "libavif_tpu_torch"))
+    assert rdsearch.__file__ == str(REPO / "libavif_tpu" / "codec" / "av1" / "rdsearch.py")
+    # plan_luma imports ``from . import rdsearch_device as RDD`` when called
+    calls = []
+
+    def probe(*args):
+        calls.append(args)
+        return rdsearch_device.materialize_plan_costs(
+            rdsearch_device.dispatch_plan_costs(*args, device="cpu"))
+
+    monkeypatch.setattr(rdsearch_device, "MIN_PELS", 1)
+    monkeypatch.setattr(rdsearch_device, "plan_costs_device", probe)
+    src = np.random.default_rng(0).integers(0, 256, (32, 48)).astype(np.int32)
+    plan = rdsearch.plan_luma(src, 120, 6, bd=8)
+    assert len(calls) == 1 and plan.dev_deltas is not None
 
 
 @pytest.mark.parametrize("path", ["libavif_tpu_torch", "chip_smoke.py"])
