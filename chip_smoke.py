@@ -29,7 +29,21 @@ Phases, each printed as it runs; any failure ends the run non-zero:
      frames encoded on the CPU with the RD program off (numpy planner),
      size within 10% and Y-PSNR within 0.3 dB per frame;
  10. alpha: one frame with a non-opaque alpha plane, encoded on the
-     card; the alpha item is written and read back.
+     card; the alpha item is written and read back;
+ 11. reformat: RGB -> YUV -> RGB of a 4032x3024 photo-sized frame in five
+     configurations (8-bit BT.601 full 4:2:0, 10-bit BT.709 limited
+     4:2:0, 8-bit identity 4:4:4, 10-bit YCgCo-Re 4:4:4, 8-bit sharp-YUV
+     4:2:0), on the card and on the CPU, held to the tolerance of
+     tests/test_torch_reformat.py; each direction timed on the card with
+     CUDA events, whole call and device program alone, and on the CPU
+     with the host clock;
+ 12. RGB service path: 8 seeded 768x512 RGB PNGs and one RGBA PNG through
+     io_formats.read_image(YUV420) -> encode_batch(quality=75, speed=6)
+     -> decode -> io_formats.write_png, counting the reformat runs (9 and
+     9 on the card, none on the CPU) and checking RGB-PSNR > 30 dB per
+     image; wall time split into read+convert, encode, decode and
+     convert+write, with the PNG decode and the YUV->RGB conversion
+     timed alone after the counted run.
 
 The last two lines are a JSON object describing each kernel, then
 {"ok": true, "device": {...}}.
@@ -38,8 +52,11 @@ The last two lines are a JSON object describing each kernel, then
 from __future__ import annotations
 
 import json
+import math
+import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -50,6 +67,7 @@ QUALITY = 75
 SPEED = 6
 BATCH = 8
 K1_SHAPE = (416, 16)  # (blocks, n) of one encode step at speed 6: 32 lanes x 13 modes
+PHOTO_W, PHOTO_H = 4032, 3024  # a phone camera's 12.2 MP still
 
 
 def smi_line() -> str:
@@ -181,6 +199,143 @@ def check_rd_tables(rdsearch_device, luma, qindex, dev, smi):
     cpu_ms = (time.perf_counter() - t0) / 2 * 1e3
     print(f"[rd] program per frame: card {card_ms:.3f} ms (CUDA events, 10 runs) on {smi}; "
           f"CPU {cpu_ms:.3f} ms (host clock, 2 runs) on the same machine", flush=True)
+
+
+def plane_diff(got: np.ndarray, want: np.ndarray, what: str) -> int:
+    """The float tolerance of tests/test_torch_reformat.py: within 1 code
+    value, at most 1 in 5,000 samples off by one. Returns that count."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{what}: {got.shape} {got.dtype} vs {want.shape} {want.dtype}")
+    diff = np.abs(got.astype(np.int64) - want.astype(np.int64))
+    off = int((diff > 0).sum())
+    if diff.max() > 1 or off > math.ceil(diff.size / 5000):
+        raise AssertionError(f"{what}: card vs CPU max|diff| {diff.max()}, {off} of {diff.size} differ")
+    return off
+
+
+def check_reformat(reformat, dev, smi):
+    """Phase 11: each configuration on the card and on the CPU at 12.2 MP."""
+    from libavif_tpu.constants import ChromaUpsampling
+    from libavif_tpu.constants import MatrixCoefficients as MC
+    from libavif_tpu.constants import PixelFormat, Range
+
+    yy, xx = np.mgrid[0:PHOTO_H, 0:PHOTO_W]
+    noise = np.random.default_rng(11).integers(-24, 25, (PHOTO_H, PHOTO_W, 3))
+    smooth = np.stack([xx * 255 // PHOTO_W, yy * 255 // PHOTO_H, (xx + yy) * 255 // (PHOTO_W + PHOTO_H)], -1)
+    rgb = np.clip(smooth + noise, 0, 255).astype(np.uint8)
+    configs = [
+        ("8-bit BT.601 full 4:2:0", dict(depth=8, yuv_format=PixelFormat.YUV420, yuv_range=Range.FULL,
+                                        matrix_coefficients=MC.BT601), False),
+        ("10-bit BT.709 limited 4:2:0", dict(depth=10, yuv_format=PixelFormat.YUV420, yuv_range=Range.LIMITED,
+                                            matrix_coefficients=MC.BT709), False),
+        ("8-bit identity 4:4:4", dict(depth=8, yuv_format=PixelFormat.YUV444, yuv_range=Range.FULL,
+                                     matrix_coefficients=MC.IDENTITY), False),
+        ("10-bit YCgCo-Re 4:4:4", dict(depth=10, yuv_format=PixelFormat.YUV444, yuv_range=Range.FULL,
+                                      matrix_coefficients=MC.YCGCO_RE), False),
+        ("8-bit sharp-YUV 4:2:0", dict(depth=8, yuv_format=PixelFormat.YUV420, yuv_range=Range.FULL,
+                                      matrix_coefficients=MC.BT601), True),
+    ]
+    for name, kw, sharp in configs:
+        kw = dict(kw, rgb_depth=8)
+        t0 = time.perf_counter()
+        host = reformat.rgb_to_yuv_arrays(rgb, sharp_yuv=sharp, device="cpu", **kw)
+        cpu_fwd = (time.perf_counter() - t0) * 1e3
+        card = reformat.rgb_to_yuv_arrays(rgb, sharp_yuv=sharp, device=dev, **kw)
+        off = [plane_diff(c, h, f"{name} rgb->yuv plane {i}") for i, (c, h) in enumerate(zip(card, host))]
+        t0 = time.perf_counter()
+        back_host = reformat.yuv_to_rgb_arrays(*host, device="cpu", **kw)
+        cpu_inv = (time.perf_counter() - t0) * 1e3
+        back_card = reformat.yuv_to_rgb_arrays(*host, device=dev, **kw)
+        off.append(plane_diff(back_card, back_host, f"{name} yuv->rgb"))
+        if kw["matrix_coefficients"] in (MC.IDENTITY, MC.YCGCO_RE) and not np.array_equal(back_card, rgb):
+            raise AssertionError(f"{name}: the lossless round trip on the card is not exact")
+        fwd_ms = time_ms(lambda: reformat.rgb_to_yuv_arrays(rgb, sharp_yuv=sharp, device=dev, **kw), 5)
+        inv_ms = time_ms(lambda: reformat.yuv_to_rgb_arrays(*host, device=dev, **kw), 5)
+        # the device programs alone, on inputs already on the card
+        rgb_dev = reformat._to_device(rgb, dev)
+        planes_dev = [reformat._to_device(p, dev) for p in host]
+        prog_kw = dict(kw, color_primaries=2)
+        fwd_dev_ms = time_ms(lambda: reformat._rgb_to_yuv(rgb_dev, sharp_yuv=sharp, **prog_kw), 5)
+        inv_dev_ms = time_ms(lambda: reformat._yuv_to_rgb(
+            *planes_dev, chroma_upsampling=ChromaUpsampling.AUTOMATIC, **prog_kw), 5)
+        print(f"[reformat] {name} {PHOTO_W}x{PHOTO_H}: card vs CPU samples off by one {off} "
+              f"(Y, U, V, RGB); rgb->yuv card {fwd_ms:.3f} ms (program alone {fwd_dev_ms:.3f} ms), "
+              f"CPU {cpu_fwd:.3f} ms; yuv->rgb card {inv_ms:.3f} ms (program alone {inv_dev_ms:.3f} ms), "
+              f"CPU {cpu_inv:.3f} ms; CUDA events over 5 calls on {smi}", flush=True)
+
+
+def service_rgb(i: int) -> np.ndarray:
+    """A seeded smooth 768x512 RGB frame with mild noise."""
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float64)
+    rng = np.random.default_rng(100 + i)
+    phase = rng.uniform(0, 2 * np.pi, 3)
+    rgb = np.stack([128 + 100 * np.sin(xx / (40 + 7 * c) + yy / (55 - 5 * c) + phase[c]) for c in range(3)], -1)
+    return np.clip(rgb + rng.normal(0, 2, rgb.shape), 0, 255).astype(np.uint8)
+
+
+def check_rgb_service(io_formats, reformat, encode_batch, decode, smi):
+    """Phase 12: PNG -> AVIF -> PNG for 8 RGB frames and one RGBA frame."""
+    from PIL import Image as PILImage
+
+    from libavif_tpu.constants import PixelFormat
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        sources = [service_rgb(i) for i in range(BATCH)]
+        yy, xx = np.mgrid[0:H, 0:W]
+        sources.append(np.concatenate([service_rgb(BATCH), ((xx + 2 * yy) % 256)[..., None]], -1).astype(np.uint8))
+        paths = []
+        for i, px in enumerate(sources):
+            paths.append(tmp / f"in{i}.png")
+            PILImage.fromarray(px, "RGBA" if px.shape[-1] == 4 else "RGB").save(paths[-1])
+        runs_fwd, runs_inv = reformat.rgb_to_yuv_arrays.runs, reformat.yuv_to_rgb_arrays.runs
+        runs_fwd.clear()
+        runs_inv.clear()
+        t0 = time.perf_counter()
+        imgs = [io_formats.read_image(p, requested_format=PixelFormat.YUV420) for p in paths]
+        t_read = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        files = encode_batch(imgs, quality=QUALITY, speed=SPEED)
+        torch.cuda.synchronize()
+        t_enc = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        decoded = [decode(data) for data in files]
+        t_dec = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for i, img in enumerate(decoded):
+            io_formats.write_png(tmp / f"out{i}.png", img)
+        t_write = time.perf_counter() - t0
+        counts = (dict(runs_fwd), dict(runs_inv))
+        n = len(sources)
+        if counts != ({"cuda": n}, {"cuda": n}):
+            raise AssertionError(f"reformat runs rgb->yuv {counts[0]}, yuv->rgb {counts[1]}: "
+                                 f"expected {n} each on cuda and none on the CPU")
+        psnrs = []
+        for i, px in enumerate(sources):
+            out = np.asarray(PILImage.open(tmp / f"out{i}.png"))
+            if out.shape != px.shape:
+                raise AssertionError(f"image {i}: wrote {out.shape}, read {px.shape}")
+            err = out[..., :3].astype(np.float64) - px[..., :3]
+            psnrs.append(10 * np.log10(255.0**2 / max(np.mean(err * err), 1e-12)))
+            if not psnrs[-1] > 30:
+                raise AssertionError(f"image {i}: RGB-PSNR {psnrs[-1]:.2f} dB")
+        # the split of the two conversion legs, after the counted run
+        t0 = time.perf_counter()
+        for p in paths:
+            with PILImage.open(p) as pim:
+                np.asarray(pim.convert(pim.mode))
+        t_png_read = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for img in decoded:
+            io_formats.png_jpeg._to_rgb_array(img, 8)
+        t_to_rgb = time.perf_counter() - t0
+    mp = n * W * H / 1e6
+    total = t_read + t_enc + t_dec + t_write
+    print(f"[service] {n} x {W}x{H} PNG -> AVIF (q{QUALITY} s{SPEED}, 4:2:0) -> PNG: {total:.3f} s, "
+          f"{mp / total:.4f} MP/s; read+convert {t_read:.3f} s (PNG decode alone {t_png_read:.3f} s), "
+          f"encode {t_enc:.3f} s, decode {t_dec:.3f} s, convert+write {t_write:.3f} s (YUV->RGB alone "
+          f"{t_to_rgb:.3f} s); reformat runs on cuda {counts[0]['cuda']} + {counts[1]['cuda']}, none on "
+          f"the CPU; RGB-PSNR min {min(psnrs):.4f} dB, {sum(map(len, files))} bytes; on {smi}", flush=True)
 
 
 def main() -> int:
@@ -355,6 +510,15 @@ def main() -> int:
         raise AssertionError(f"alpha: RD runs {dict(runs)}, alpha PSNR {apsnr:.2f} dB")
     print(f"[alpha] alpha item written and read back: {len(alpha_file)} bytes, alpha PSNR "
           f"{apsnr:.4f} dB, RD program runs on cuda {runs['cuda']} (color + alpha)", flush=True)
+
+    # 11. reformat on the card
+    from libavif_tpu_torch import io_formats
+    from libavif_tpu_torch.pixels import reformat
+
+    check_reformat(reformat, dev, smi)
+
+    # 12. the RGB service path
+    check_rgb_service(io_formats, reformat, encode_batch, decode, smi)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": [{

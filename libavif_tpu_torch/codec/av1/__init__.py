@@ -15,7 +15,7 @@ The shared files import ``...constants``, ``...containers.obu``,
 resolve under ``libavif_tpu_torch``. Those names are aliases in
 ``sys.modules`` for the JAX package's jax-free modules, not copies, so
 ``AvifError`` and ``SequenceHeader`` are the same classes in both
-packages and the C++ library loads once.
+packages and the C++ library loads once (``libavif_tpu_torch/_shared.py``).
 
 The inter path is not ported: ``interenc`` and ``interpred`` are not on
 the still path, and ``interenc.py:591`` imports
@@ -23,27 +23,6 @@ the still path, and ``interenc.py:591`` imports
 ``libavif_tpu_torch.codec.frame`` (ROADMAP queue 1).
 """
 
-import importlib
-import os
-import sys
+from ..._shared import shared_path
 
-import libavif_tpu
-
-_ALIASED = (
-    "constants",
-    "containers",
-    "containers.obu",
-    "models",
-    "models.av1",
-    "models.av1.msac",
-    "utils",
-    "utils.streams",
-    "native",
-)
-for _name in _ALIASED:
-    sys.modules[f"libavif_tpu_torch.{_name}"] = importlib.import_module(f"libavif_tpu.{_name}")
-
-__path__ = [
-    os.path.dirname(os.path.abspath(__file__)),
-    os.path.join(os.path.dirname(os.path.abspath(libavif_tpu.__file__)), "codec", "av1"),
-]
+__path__ = shared_path(__file__, "codec", "av1")

@@ -1,6 +1,6 @@
-"""Tests that need an NVIDIA GPU: K1, the own-format path and the spec
-path's RD pre-pass on the card, each held against the port's own plain
-PyTorch path on the CPU.
+"""Tests that need an NVIDIA GPU: K1, the own-format path, the spec
+path's RD pre-pass and the pixel pipeline on the card, each held against
+the port's own plain PyTorch path on the CPU.
 
 They skip where ``torch.cuda.is_available()`` is false. This file imports
 no jax (the machine with the card has none), so on that machine it runs
@@ -9,16 +9,19 @@ without the JAX-pinning conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
 
-from libavif_tpu.constants import PixelFormat
+from libavif_tpu.constants import ChromaUpsampling, MatrixCoefficients, PixelFormat, Range
 from libavif_tpu.image import Image
-from libavif_tpu_torch import api, tables
+from libavif_tpu_torch import api, io_formats, tables
 from libavif_tpu_torch.codec import recon
 from libavif_tpu_torch.codec.av1 import rdsearch_device
 from libavif_tpu_torch.ops import cuda_kernels
+from libavif_tpu_torch.pixels import reformat
 
 _CASES = [
     (tx, n)
@@ -127,3 +130,56 @@ def test_spec_encode_on_card_runs_the_rd_program(cuda):
     assert rdsearch_device.dispatch_plan_costs.runs["cuda"] == before + 2  # color and alpha
     out = api.decode(data, device=cuda)
     assert out.yuv_planes[0].shape == (256, 512) and out.alpha_plane.shape == (256, 512)
+
+
+_REFORMAT_CASES = [
+    (PixelFormat.YUV420, 8, Range.FULL, MatrixCoefficients.BT601, False),
+    (PixelFormat.YUV420, 10, Range.LIMITED, MatrixCoefficients.BT709, False),
+    (PixelFormat.YUV422, 12, Range.FULL, MatrixCoefficients.YCGCO, True),
+    (PixelFormat.YUV444, 8, Range.FULL, MatrixCoefficients.IDENTITY, False),
+    (PixelFormat.YUV444, 10, Range.FULL, MatrixCoefficients.YCGCO_RE, False),
+]
+
+
+def _assert_close(got, want):
+    """The float tolerance of tests/test_torch_reformat.py."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    diff = np.abs(got.astype(np.int64) - want.astype(np.int64))
+    assert diff.max() <= 1 and int((diff > 0).sum()) <= math.ceil(diff.size / 5000)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(23, 37), (512, 768), (1001, 1503)])
+@pytest.mark.parametrize("fmt,depth,rng_,mc,sharp", _REFORMAT_CASES, ids=lambda x: str(int(x)))
+def test_reformat_on_card_matches_cpu(cuda, h, w, fmt, depth, rng_, mc, sharp):
+    rgb = np.random.default_rng(depth).integers(0, 256, (h, w, 3)).astype(np.uint8)
+    kw = dict(depth=depth, rgb_depth=8, yuv_format=fmt, yuv_range=rng_, matrix_coefficients=mc)
+    runs = reformat.rgb_to_yuv_arrays.runs["cuda"], reformat.yuv_to_rgb_arrays.runs["cuda"]
+    card = reformat.rgb_to_yuv_arrays(rgb, sharp_yuv=sharp, device=cuda, **kw)
+    host = reformat.rgb_to_yuv_arrays(rgb, sharp_yuv=sharp, device="cpu", **kw)
+    for c, p in zip(card, host):
+        _assert_close(c, p)
+    for up in (ChromaUpsampling.AUTOMATIC, ChromaUpsampling.NEAREST):
+        _assert_close(reformat.yuv_to_rgb_arrays(*host, chroma_upsampling=up, device=cuda, **kw),
+                      reformat.yuv_to_rgb_arrays(*host, chroma_upsampling=up, device="cpu", **kw))
+    assert (reformat.rgb_to_yuv_arrays.runs["cuda"], reformat.yuv_to_rgb_arrays.runs["cuda"]) == (
+        runs[0] + 1, runs[1] + 2)
+
+
+@pytest.mark.cuda
+def test_png_path_converts_on_the_card(cuda, tmp_path):
+    """``io_formats`` converts on default_device(), which is the card."""
+    from PIL import Image as PILImage
+
+    yy, xx = np.mgrid[0:64, 0:96]
+    px = np.stack([xx * 2, yy * 3, xx + yy, 255 - yy], axis=-1).astype(np.uint8)
+    PILImage.fromarray(px, "RGBA").save(tmp_path / "in.png")
+    runs = reformat.rgb_to_yuv_arrays.runs.copy(), reformat.yuv_to_rgb_arrays.runs.copy()
+    img = io_formats.read_image(tmp_path / "in.png", requested_format=PixelFormat.YUV420)
+    io_formats.write_png(tmp_path / "out.png", api.decode(api.encode_batch([img], quality=90)[0]))
+    assert reformat.rgb_to_yuv_arrays.runs - runs[0] == {"cuda": 1}
+    assert reformat.yuv_to_rgb_arrays.runs - runs[1] == {"cuda": 1}
+    out = np.asarray(PILImage.open(tmp_path / "out.png")).astype(np.float64)
+    assert out.shape == px.shape
+    mse = np.mean((out[..., :3] - px[..., :3]) ** 2)
+    assert 10 * np.log10(255.0**2 / mse) > 30

@@ -5,13 +5,16 @@ A subprocess blocks jax (``sys.modules["jax"] = None``, so any import of
 it raises) and records every attempt with the module that made it. The
 only attempt allowed is the shared ``libavif_tpu/__init__.py``'s own
 guarded probe, which tolerates a missing jax. The subprocess then runs,
-through the port, an own-format 32×32 encode and decode, and a spec-AV1
-encode with an alpha plane and the RD pre-pass on, and its decode.
+through the port, an own-format 32×32 encode and decode, a spec-AV1
+encode with an alpha plane and the RD pre-pass on, and its decode; then
+PNG -> AVIF -> PNG (write a PNG, read it, encode, decode, write the PNG
+back) and a gain-map compute.
 
-The spec codec's host code is the JAX package's ``codec/av1`` loaded by
-path (``libavif_tpu_torch/codec/av1/__init__.py``); the modules it
-reaches outside that directory are aliases of the JAX package's, and its
-``rdsearch_device`` is the port's.
+Shared host code is the JAX package's, loaded by path under the port's
+name (``libavif_tpu_torch/_shared.py``): ``codec/av1``, ``pixels``,
+``io_formats`` and ``hdr``. The modules those files reach outside their
+directory are aliases of the JAX package's; the port's own modules
+(``rdsearch_device``, ``reformat``, ``colr``) shadow the reference's.
 """
 
 import json
@@ -56,6 +59,19 @@ rdsearch_device.MIN_PELS = 1
 img.alpha_plane = rng.integers(0, 256, (32, 32)).astype(np.uint8)
 spec = encode_batch([img], quality=75, speed=6, device="cpu")[0]
 spec_out = decode(spec, device="cpu")
+rd_runs = rdsearch_device.dispatch_plan_costs.runs["cpu"]
+
+from PIL import Image as PILImage
+import libavif_tpu.image
+from libavif_tpu_torch import io_formats
+from libavif_tpu_torch.hdr import gainmap
+from libavif_tpu_torch.pixels import reformat
+
+PILImage.fromarray(rng.integers(0, 256, (24, 40, 3)).astype(np.uint8)).save("in.png")
+rgb_img = io_formats.read_image("in.png", requested_format=PixelFormat.YUV420)
+rgb_out = decode(encode_batch([rgb_img], quality=75, speed=6, device="cpu")[0], device="cpu")
+io_formats.write_png("out.png", rgb_out)
+gm = gainmap.compute_gain_map(rgb_out, rgb_out)
 print(json.dumps({
     "attempts": attempts,
     "jax_modules": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
@@ -64,7 +80,12 @@ print(json.dumps({
     "spec_size": len(spec),
     "spec_shape": list(spec_out.yuv_planes[0].shape),
     "alpha_shape": list(spec_out.alpha_plane.shape),
-    "rd_runs": rdsearch_device.dispatch_plan_costs.runs["cpu"],
+    "rd_runs": rd_runs,
+    "png_shape": list(np.asarray(PILImage.open("out.png")).shape),
+    "gain_map_shape": list(gm.image.yuv_planes[0].shape),
+    "reformat_runs": [reformat.rgb_to_yuv_arrays.runs["cpu"], reformat.yuv_to_rgb_arrays.runs["cpu"]],
+    "one_image_class": libavif_tpu.image.Image is io_formats.png_jpeg.Image,
+    "one_gain_map_class": libavif_tpu.image.GainMap is gainmap.GainMap,
 }))
 """
 
@@ -84,21 +105,61 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     assert result["spec_size"] > 0 and result["spec_shape"] == [32, 32]
     assert result["alpha_shape"] == [32, 32]
     assert result["rd_runs"] == 2  # the color frame and the alpha frame
+    assert result["png_shape"] == [24, 40, 3] and result["gain_map_shape"] == [24, 40]
+    # PNG read + gain-map quantize; PNG write + the two linear renditions
+    assert result["reformat_runs"] == [2, 3]
+    assert result["one_image_class"] and result["one_gain_map_class"]
 
 
-@pytest.mark.parametrize(
-    "name",
-    ["constants", "containers", "containers.obu", "models", "models.av1",
-     "models.av1.msac", "utils", "utils.streams", "native"],
-)
+def _aliased():
+    from libavif_tpu_torch import _shared
+
+    return _shared.ALIASED
+
+
+def test_alias_table_covers_what_the_shared_files_import():
+    assert {"image", "utils.fractions", "utils.streams", "constants"} <= set(_aliased())
+
+
+@pytest.mark.parametrize("name", _aliased())
 def test_shared_modules_are_aliases_not_copies(name):
     import importlib
 
-    import libavif_tpu_torch.codec.av1  # noqa: F401  (installs the aliases)
+    import libavif_tpu_torch.pixels  # noqa: F401  (installs the aliases)
 
     assert importlib.import_module(f"libavif_tpu_torch.{name}") is importlib.import_module(
         f"libavif_tpu.{name}"
     )
+
+
+@pytest.mark.parametrize(
+    "module,owner",
+    [("pixels.reformat", "libavif_tpu_torch"), ("pixels.colr", "libavif_tpu_torch"),
+     ("pixels.scale", "libavif_tpu"), ("pixels.primaries", "libavif_tpu"),
+     ("io_formats.png_jpeg", "libavif_tpu"), ("io_formats.y4m", "libavif_tpu"),
+     ("hdr.gainmap", "libavif_tpu"), ("codec.av1.rdsearch_device", "libavif_tpu_torch"),
+     ("codec.av1.rdsearch", "libavif_tpu")],
+)
+def test_shared_packages_resolve_to_the_right_files(module, owner):
+    """Loaded under the port's name from the port's file (shadowing) or
+    the reference's (by path)."""
+    import importlib
+
+    mod = importlib.import_module(f"libavif_tpu_torch.{module}")
+    assert mod.__name__ == f"libavif_tpu_torch.{module}"
+    assert mod.__file__ == str(REPO / owner / (module.replace(".", "/") + ".py"))
+
+
+def test_shared_gainmap_and_png_code_reach_the_ports_reformat():
+    from libavif_tpu_torch.hdr import gainmap
+    from libavif_tpu_torch.io_formats import png_jpeg
+    from libavif_tpu_torch.pixels import colr, reformat
+
+    assert png_jpeg.image_rgb_to_yuv is reformat.image_rgb_to_yuv
+    assert png_jpeg.image_yuv_to_rgb is reformat.image_yuv_to_rgb
+    assert gainmap.rgb_to_yuv_arrays is reformat.rgb_to_yuv_arrays
+    assert gainmap.yuv_to_rgb_arrays is reformat.yuv_to_rgb_arrays
+    assert gainmap.to_linear_fn is colr.to_linear_fn
 
 
 def test_shared_planner_reaches_the_ports_rd_program(monkeypatch):
