@@ -43,7 +43,30 @@ Phases, each printed as it runs; any failure ends the run non-zero:
      9 on the card, none on the CPU) and checking RGB-PSNR > 30 dB per
      image; wall time split into read+convert, encode, decode and
      convert+write, with the PNG decode and the YUV->RGB conversion
-     timed alone after the counted run.
+     timed alone after the counted run;
+ 13. spec animation: 8 seeded textured 768x512 4:2:0 frames panning 3 px
+     right and 2 px down per frame through Encoder(device=card) (q75,
+     speed 6, timescale 30) add_image x 8 + finish, one inter-coded GOP;
+     the RD program runs once per frame on the card (the key frame's
+     planner and each inter frame's, for its intra cells) and never on
+     the CPU; Decoder(device=card).next_image x 8 with Y-PSNR > 30 dB;
+     the file under 0.8 x the all-keyframe encode (keyframe_interval=1);
+     against the CPU port with the numpy planner, total size within 10%
+     and Y-PSNR within 0.3 dB per frame; nth_image(5) and read_all equal
+     to the sequential decode;
+ 14. own-format animation: the same frames with codec_choice="native":
+     K1 launches 8 x (79 + 39) x 2, bytes equal to the CPU port's,
+     read_all on the card equal to the CPU decode;
+ 15. grid: 2x2 cells of 768x512 (1536x1024) with both codecs: 4 RD runs
+     on the card for the spec cells, the own-format cells through K1;
+     the grid decode equals the cells decoded one by one;
+ 16. still variants at 768x512 on the card, read back by
+     Decoder(device=card): write_progressive([50, 75]) with both layers
+     decoded, write_mini, a 16-bit 'sato' still (12b+4b recipe) and a
+     gain-map 'tmap' still;
+ 17. CLI: a subprocess runs python -m libavif_tpu_torch.cli.avifenc on a
+     PNG, another avifdec back to PNG; RGB-PSNR > 30 dB, and the reformat
+     run counters of both processes show the card only.
 
 The last two lines are a JSON object describing each kernel, then
 {"ok": true, "device": {...}}.
@@ -53,6 +76,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import pathlib
 import subprocess
 import sys
@@ -338,6 +362,331 @@ def check_rgb_service(io_formats, reformat, encode_batch, decode, smi):
           f"the CPU; RGB-PSNR min {min(psnrs):.4f} dB, {sum(map(len, files))} bytes; on {smi}", flush=True)
 
 
+def k1_per_frame() -> int:
+    """K1 launches of one W x H 4:2:0 own-format encode: one forward and one
+    inverse per wavefront diagonal of 16x16 blocks, luma (79 at 768x512)
+    and the two chroma planes together (39)."""
+    diagonals = (-(-W // 16) + -(-H // 16) - 1) + (-(-W // 32) + -(-H // 32) - 1)
+    return 2 * diagonals
+
+
+def pan_frames():
+    """BATCH seeded W x H 4:2:0 8-bit frames panning 3 px right and 2 px
+    down per frame over a textured scene: uniform noise smoothed by a 5x5
+    box, the content of the reference's inter-coding tests
+    (tests/test_av1_interenc.py:make_frames)."""
+    from libavif_tpu.constants import PixelFormat
+    from libavif_tpu.image import Image
+
+    rng = np.random.default_rng(13)
+    ph, pw = H + 2 * BATCH + 6, W + 3 * BATCH + 6
+    scenes = []
+    for _ in range(3):
+        noise = np.pad(rng.integers(0, 256, (ph + 4, pw + 4)).astype(np.float64), ((1, 0), (1, 0)))
+        c = noise.cumsum(0).cumsum(1)
+        scenes.append(((c[5:, 5:] - c[:-5, 5:] - c[5:, :-5] + c[:-5, :-5]) / 25).astype(np.uint8))
+    frames = []
+    for k in range(BATCH):
+        img = Image(W, H, 8, PixelFormat.YUV420)
+        img.allocate_planes("yuv")
+        y0, x0 = 2 * k, 3 * k
+        img.yuv_planes[0][:] = scenes[0][y0:y0 + H, x0:x0 + W]
+        for c in (1, 2):
+            img.yuv_planes[c][:] = scenes[c][y0:y0 + H:2, x0:x0 + W:2]
+        frames.append(img)
+    return frames
+
+
+def psnr(got: np.ndarray, want: np.ndarray, peak: int = 255) -> float:
+    err = got.astype(np.float64) - want.astype(np.float64)
+    return 10 * np.log10(peak**2 / max(np.mean(err * err), 1e-12))
+
+
+def same_planes(a, b, what: str) -> None:
+    for c, (pa, pb) in enumerate(zip(a.yuv_planes, b.yuv_planes)):
+        if (pa is None) != (pb is None) or (pa is not None and not np.array_equal(pa, pb)):
+            raise AssertionError(f"{what}: plane {c} differs")
+
+
+def encode_animation(api, frames, device, **settings) -> bytes:
+    enc = api.Encoder(device=device)
+    enc.quality, enc.speed, enc.timescale = QUALITY, SPEED, 30
+    for k, v in settings.items():
+        setattr(enc, k, v)
+    for f in frames:
+        enc.add_image(f)
+    return enc.finish()
+
+
+def check_spec_animation(api, rdsearch_device, frames, dev, smi):
+    """Phase 13: one inter-coded GOP of 8 frames on the card."""
+    runs = rdsearch_device.dispatch_plan_costs.runs
+    runs.clear()
+    t0 = time.perf_counter()
+    data = encode_animation(api, frames, dev)
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    gop_runs = dict(runs)
+    if gop_runs != {torch.device(dev).type: BATCH}:
+        raise AssertionError(f"RD program runs {gop_runs}: expected {BATCH} on {dev} (one per frame), "
+                             "none elsewhere")
+    dec = api.Decoder(device=dev)
+    dec.parse(data)
+    t0 = time.perf_counter()
+    seq = []
+    while dec.next_image():
+        seq.append(dec.image)
+    dec_s = time.perf_counter() - t0
+    psnrs = [psnr(img.yuv_planes[0], f.yuv_planes[0]) for img, f in zip(seq, frames)]
+    if len(seq) != BATCH or min(psnrs) <= 30:
+        raise AssertionError(f"{len(seq)} frames decoded, Y-PSNR {psnrs}")
+    t0 = time.perf_counter()
+    intra = encode_animation(api, frames, dev, keyframe_interval=1)
+    intra_s = time.perf_counter() - t0
+    if not len(data) < 0.8 * len(intra):
+        raise AssertionError(f"inter-coded {len(data)} bytes vs all-keyframe {len(intra)} bytes")
+    min_pels = rdsearch_device.MIN_PELS
+    rdsearch_device.MIN_PELS = W * H + 1  # the numpy planner
+    t0 = time.perf_counter()
+    try:
+        ref = encode_animation(api, frames, "cpu")
+    finally:
+        rdsearch_device.MIN_PELS = min_pels
+    cpu_s = time.perf_counter() - t0
+    ref_dec = api.Decoder(device="cpu")
+    ref_dec.parse(ref)
+    ref_psnrs = [psnr(img.yuv_planes[0], f.yuv_planes[0]) for img, f in zip(ref_dec.read_all(), frames)]
+    worst = max(abs(a - b) for a, b in zip(psnrs, ref_psnrs))
+    if not (abs(len(data) - len(ref)) < 0.1 * len(ref) and worst < 0.3):
+        raise AssertionError(f"{len(data)} bytes, Y-PSNR {psnrs} on the card vs {len(ref)} bytes, "
+                             f"{ref_psnrs} with the numpy planner")
+    seek = api.Decoder(device=dev)
+    seek.parse(data)
+    same_planes(seek.nth_image(5), seq[5], "nth_image(5)")
+    reader = api.Decoder(device=dev)
+    reader.parse(data)
+    t0 = time.perf_counter()
+    everything = reader.read_all()
+    all_s = time.perf_counter() - t0
+    for k, (a, b) in enumerate(zip(everything, seq)):
+        same_planes(a, b, f"read_all frame {k}")
+    mp = BATCH * W * H / 1e6
+    print(f"[anim] spec {BATCH} x {W}x{H} q{QUALITY} s{SPEED}, one GOP: encode {enc_s:.3f} s "
+          f"({mp / enc_s:.4f} MP/s), RD program runs {gop_runs}; {len(data)} bytes vs "
+          f"{len(intra)} all-keyframe ({intra_s:.3f} s) and {len(ref)} with the CPU numpy planner "
+          f"({cpu_s:.3f} s); decode next_image x {BATCH} {dec_s:.3f} s ({mp / dec_s:.4f} MP/s), "
+          f"read_all {all_s:.3f} s; Y-PSNR min {min(psnrs):.4f} dB, max |card - numpy| {worst:.4f} dB; "
+          f"on {smi}", flush=True)
+
+
+def check_native_animation(api, cuda_kernels, frames, dev, smi):
+    """Phase 14: the same frames in the own format."""
+    cuda_kernels.transform_2d.launches = 0
+    t0 = time.perf_counter()
+    data = encode_animation(api, frames, dev, codec_choice="native")
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    launches = cuda_kernels.transform_2d.launches
+    if launches != BATCH * k1_per_frame():
+        raise AssertionError(f"K1 launches {launches}, expected {BATCH * k1_per_frame()}")
+    t0 = time.perf_counter()
+    if encode_animation(api, frames, "cpu", codec_choice="native") != data:
+        raise AssertionError("own-format animation: the card's bytes differ from the CPU port's")
+    cpu_s = time.perf_counter() - t0
+    decoded = []
+    times = []
+    for device in (dev, "cpu"):
+        d = api.Decoder(device=device)
+        d.parse(data)
+        t0 = time.perf_counter()
+        decoded.append(d.read_all())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    for k, (a, b) in enumerate(zip(*decoded)):
+        same_planes(a, b, f"own-format read_all frame {k}, card vs CPU")
+    if len(decoded[0]) != BATCH:
+        raise AssertionError(f"read_all gave {len(decoded[0])} frames")
+    p = min(psnr(img.yuv_planes[0], f.yuv_planes[0]) for img, f in zip(decoded[0], frames))
+    mp = BATCH * W * H / 1e6
+    print(f"[anim] native {BATCH} x {W}x{H} q{QUALITY} s{SPEED}: encode {enc_s:.3f} s ({mp / enc_s:.4f} MP/s), "
+          f"K1 launches {launches}, {len(data)} bytes equal to the CPU port's ({cpu_s:.3f} s); read_all "
+          f"card {times[0]:.3f} s ({mp / times[0]:.4f} MP/s) equals CPU ({times[1]:.3f} s); Y-PSNR min "
+          f"{p:.4f} dB; on {smi}", flush=True)
+
+
+def check_grid(api, rdsearch_device, cuda_kernels, frames, dev, smi):
+    """Phase 15: 2x2 grids of 768x512 cells, both codecs."""
+    from libavif_tpu.containers.parse import parse as parse_container
+    from libavif_tpu.containers.parse import read_item_payload
+    from libavif_tpu_torch.codec.frame import decode_frame
+
+    cells = frames[:4]
+    runs = rdsearch_device.dispatch_plan_costs.runs
+    for codec in ("auto", "native"):
+        enc = api.Encoder(device=dev)
+        enc.quality, enc.speed, enc.codec_choice = QUALITY, SPEED, codec
+        runs.clear()
+        cuda_kernels.transform_2d.launches = 0
+        t0 = time.perf_counter()
+        data = enc.write_grid(cells, columns=2, rows=2)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+        launches, rd = cuda_kernels.transform_2d.launches, dict(runs)
+        want = ({torch.device(dev).type: 4}, 0) if codec == "auto" else ({}, 4 * k1_per_frame())
+        if (rd, launches) != want:
+            raise AssertionError(f"{codec} grid: RD runs {rd}, K1 launches {launches}, expected {want}")
+        t0 = time.perf_counter()
+        out = api.Decoder(device=dev).read(data)
+        dec_s = time.perf_counter() - t0
+        if (out.width, out.height) != (2 * W, 2 * H):
+            raise AssertionError(f"{codec} grid decoded {out.width}x{out.height}")
+        meta = parse_container(data).meta
+        items = sorted((i for i in meta.items.values() if i.dimg_for_id == meta.primary_item_id),
+                       key=lambda i: i.dimg_idx)
+        worst = 99.0
+        for idx, item in enumerate(items):
+            cell = decode_frame(read_item_payload(meta, item, data), device=dev)
+            r, c = divmod(idx, 2)
+            for p, plane in enumerate(cell.yuv_planes):
+                s = 0 if p == 0 else 1
+                region = out.yuv_planes[p][r * (H >> s):(r + 1) * (H >> s), c * (W >> s):(c + 1) * (W >> s)]
+                if not np.array_equal(region, plane):
+                    raise AssertionError(f"{codec} grid cell {idx} plane {p} differs from its own decode")
+            worst = min(worst, psnr(cell.yuv_planes[0], cells[idx].yuv_planes[0]))
+        print(f"[grid] {codec} 2x2 x {W}x{H} ({2 * W}x{2 * H}): encode {enc_s:.3f} s "
+              f"({4 * W * H / 1e6 / enc_s:.4f} MP/s), RD runs {rd}, K1 launches {launches}, {len(data)} bytes; "
+              f"decode {dec_s:.3f} s equals the cells decoded one by one; cell Y-PSNR min {worst:.4f} dB; "
+              f"on {smi}", flush=True)
+
+
+def check_still_variants(api, frames, dev, smi):
+    """Phase 16: progressive, mini, 16-bit sato and gain-map stills."""
+    from libavif_tpu.constants import ColorPrimaries, MatrixCoefficients, PixelFormat, TransferCharacteristics
+    from libavif_tpu.image import Image
+    from libavif_tpu_torch.hdr import gainmap, sampletransform
+
+    img = frames[0]
+
+    def encoder(**settings):
+        enc = api.Encoder(device=dev)
+        enc.quality, enc.speed = QUALITY, SPEED
+        for k, v in settings.items():
+            setattr(enc, k, v)
+        return enc
+
+    t0 = time.perf_counter()
+    prog = encoder().write_progressive(img, [50, 75])
+    d = api.Decoder(device=dev)
+    d.allow_progressive = True
+    d.parse(prog)
+    layers = []
+    while d.next_image():
+        layers.append(psnr(d.image.yuv_planes[0], img.yuv_planes[0]))
+    if len(layers) != 2 or not 30 < layers[0] <= layers[1]:
+        raise AssertionError(f"progressive layers Y-PSNR {layers}")
+    prog_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    mini = encoder().write_mini(img)
+    mini_psnr = psnr(api.Decoder(device=dev).read(mini).yuv_planes[0], img.yuv_planes[0])
+    full = encoder().write(img)
+    if not (mini_psnr > 30 and len(mini) < len(full)):
+        raise AssertionError(f"mini: {len(mini)} bytes (full {len(full)}), Y-PSNR {mini_psnr:.2f} dB")
+    mini_s = time.perf_counter() - t0
+
+    deep = Image(W, H, 16, PixelFormat.YUV420)
+    deep.allocate_planes("yuv")
+    rng = np.random.default_rng(16)
+    for c in range(3):
+        p = img.yuv_planes[c].astype(np.int64) * 257
+        deep.yuv_planes[c][:] = np.clip(p + rng.integers(-64, 65, p.shape), 0, 65535)
+    t0 = time.perf_counter()
+    sato = encoder(sample_transform_recipe=sampletransform.Recipe.BIT_DEPTH_EXTENSION_12B_4B).write(deep)
+    out16 = api.Decoder(device=dev).read(sato)
+    sato_s = time.perf_counter() - t0
+    sato_psnr = psnr(out16.yuv_planes[0], deep.yuv_planes[0], 65535)
+    if out16.depth != 16 or not sato_psnr > 30:
+        raise AssertionError(f"sato: depth {out16.depth}, 16-bit Y-PSNR {sato_psnr:.2f} dB")
+
+    base = img.copy("all")
+    base.color_primaries = ColorPrimaries.BT709
+    base.transfer_characteristics = TransferCharacteristics.SRGB
+    base.matrix_coefficients = MatrixCoefficients.BT601
+    alt = Image(W, H, 10, PixelFormat.YUV420)
+    alt.allocate_planes("yuv")
+    alt.copy_no_pixels(base)
+    alt.depth = 10
+    alt.transfer_characteristics = TransferCharacteristics.PQ
+    for c in range(3):
+        alt.yuv_planes[c][:] = np.clip(img.yuv_planes[c].astype(np.int64) * 3 + (c == 0) * 40, 0, 1023)
+    t0 = time.perf_counter()
+    base.gain_map = gainmap.compute_gain_map(base, alt, gain_map_format=PixelFormat.YUV420)
+    tmap = encoder().write(base)
+    back = api.Decoder(device=dev).read(tmap)
+    tmap_s = time.perf_counter() - t0
+    gm = back.gain_map
+    if gm is None or gm.image is None or not gainmap.same_metadata(gm.metadata, base.gain_map.metadata):
+        raise AssertionError("tmap: the gain map was not read back with its metadata")
+    gm_psnr = psnr(gm.image.yuv_planes[0], base.gain_map.image.yuv_planes[0])
+    if not gm_psnr > 30:
+        raise AssertionError(f"tmap: gain-map Y-PSNR {gm_psnr:.2f} dB")
+    print(f"[still] {W}x{H} q{QUALITY} on the card: progressive [50, 75] {len(prog)} bytes, layer Y-PSNR "
+          f"{layers[0]:.4f} / {layers[1]:.4f} dB, {prog_s:.3f} s; mini {len(mini)} bytes (full {len(full)}), "
+          f"{mini_psnr:.4f} dB, {mini_s:.3f} s; 16-bit sato 12b+4b {len(sato)} bytes, 16-bit Y-PSNR "
+          f"{sato_psnr:.4f} dB, {sato_s:.3f} s; tmap {len(tmap)} bytes, gain-map Y-PSNR {gm_psnr:.4f} dB, "
+          f"{tmap_s:.3f} s; on {smi}", flush=True)
+
+
+# Runs one CLI module as ``python -m`` does, then writes the reformat run
+# counters of the process to the file named by the first argument.
+_CLI_PRELUDE = """
+import atexit, json, runpy, sys
+out, module = sys.argv[1], sys.argv[2]
+sys.argv = [module] + sys.argv[3:]
+
+def _counts():
+    from libavif_tpu_torch.pixels import reformat
+    with open(out, "w") as f:
+        json.dump([dict(reformat.rgb_to_yuv_arrays.runs), dict(reformat.yuv_to_rgb_arrays.runs)], f)
+
+atexit.register(_counts)
+runpy.run_module(module, run_name="__main__", alter_sys=True)
+"""
+
+
+def check_cli(smi):
+    """Phase 17: avifenc then avifdec, each in a subprocess."""
+    from PIL import Image as PILImage
+
+    repo = pathlib.Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        src = service_rgb(17)
+        PILImage.fromarray(src, "RGB").save(tmp / "in.png")
+        counts, times = [], []
+        for tool, args in (("avifenc", ["-q", str(QUALITY), "-s", str(SPEED), "in.png", "out.avif"]),
+                           ("avifdec", ["out.avif", "out.png"])):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-c", _CLI_PRELUDE, str(tmp / f"{tool}.json"),
+                 f"libavif_tpu_torch.cli.{tool}", *args],
+                cwd=tmp, env={**os.environ, "PYTHONPATH": str(repo)},
+                capture_output=True, text=True, timeout=300,
+            )
+            times.append(time.perf_counter() - t0)
+            if proc.returncode != 0:
+                raise AssertionError(f"{tool} exited {proc.returncode}: {proc.stderr[-2000:]}")
+            counts.append(json.loads((tmp / f"{tool}.json").read_text()))
+        out = np.asarray(PILImage.open(tmp / "out.png"))
+        rgb_psnr = psnr(out, src)
+        size = (tmp / "out.avif").stat().st_size
+    if counts != [[{"cuda": 1}, {}], [{}, {"cuda": 1}]] or not rgb_psnr > 30:
+        raise AssertionError(f"CLI: reformat runs {counts}, RGB-PSNR {rgb_psnr:.2f} dB")
+    print(f"[cli] python -m libavif_tpu_torch.cli.avifenc {W}x{H} PNG -> {size} bytes in {times[0]:.3f} s, "
+          f"avifdec -> PNG in {times[1]:.3f} s (processes included); RGB-PSNR {rgb_psnr:.4f} dB; reformat "
+          f"runs {counts[0][0]} + {counts[1][1]}, none on the CPU; on {smi}", flush=True)
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -519,6 +868,18 @@ def main() -> int:
 
     # 12. the RGB service path
     check_rgb_service(io_formats, reformat, encode_batch, decode, smi)
+
+    # 13-16. the Encoder and Decoder classes: animations, grids, still variants
+    from libavif_tpu_torch import api
+
+    frames = pan_frames()
+    check_spec_animation(api, rdsearch_device, frames, dev, smi)
+    check_native_animation(api, cuda_kernels, frames, dev, smi)
+    check_grid(api, rdsearch_device, cuda_kernels, frames, dev, smi)
+    check_still_variants(api, frames, dev, smi)
+
+    # 17. the command-line tools
+    check_cli(smi)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": [{

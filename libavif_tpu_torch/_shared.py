@@ -12,10 +12,12 @@ Two mechanisms keep one copy of the jax-free host code:
     its own entry: aliasing ``utils`` alone would let
     ``libavif_tpu_torch.utils.fractions`` load a second copy of
     ``libavif_tpu/utils/fractions.py`` through the aliased package's
-    ``__path__``.
-  - **By path.** A port package whose reference package imports jax in
-    its ``__init__`` (``codec/av1``'s parent, ``pixels``, ``io_formats``,
-    ``hdr``) sets ``__path__ = shared_path(__file__, <reference dir>)``:
+    ``__path__`` (and a second ``containers.items`` would make
+    ``Property`` and ``OutputItem`` two classes).
+  - **By path.** A port package whose reference package reaches jax, in
+    its ``__init__`` or through its siblings (``codec/av1``'s parent,
+    ``pixels``, ``io_formats``, ``hdr``, ``api``, ``cli``) sets
+    ``__path__ = shared_path(__file__, <reference dir>)``:
     its own directory first, then the reference's. Its modules are the
     reference's files loaded under the port's name, except those the
     port's directory holds, which shadow them.
@@ -32,12 +34,17 @@ import libavif_tpu
 ALIASED = (
     "constants",
     "containers",
+    "containers.items",
+    "containers.mini",
     "containers.obu",
+    "containers.parse",
+    "containers.write",
     "image",
     "models",
     "models.av1",
     "models.av1.msac",
     "utils",
+    "utils.exif",
     "utils.fractions",
     "utils.streams",
     "native",

@@ -1,6 +1,17 @@
-"""Public API of the port: batch still encode and still decode."""
+"""Public API of the port: the ``Encoder`` and ``Decoder`` aggregates,
+``encode``, ``decode`` and ``encode_batch``, each on ``device=``.
 
-from .decoder import decode
-from .encoder import encode_batch
+Shared with the JAX package by path (``libavif_tpu_torch/_shared.py``):
+``io`` (the IO readers) is the reference's file loaded under this
+package's name; ``encoder`` and ``decoder`` are the port's own and shadow
+the reference's.
+"""
 
-__all__ = ["decode", "encode_batch"]
+from .._shared import shared_path
+
+__path__ = shared_path(__file__, "api")
+
+from .decoder import Decoder, decode  # noqa: E402
+from .encoder import Encoder, encode, encode_batch  # noqa: E402
+
+__all__ = ["Decoder", "Encoder", "decode", "encode", "encode_batch"]

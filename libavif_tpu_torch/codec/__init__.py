@@ -8,6 +8,7 @@ from .frame import (
     decode_frames_pipelined,
     encode_frame,
     encode_frames_pipelined,
+    encode_sequence_frames,
 )
 
 __all__ = [
@@ -16,4 +17,5 @@ __all__ = [
     "decode_frames_pipelined",
     "encode_frame",
     "encode_frames_pipelined",
+    "encode_sequence_frames",
 ]

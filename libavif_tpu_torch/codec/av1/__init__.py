@@ -17,10 +17,14 @@ resolve under ``libavif_tpu_torch``. Those names are aliases in
 ``AvifError`` and ``SequenceHeader`` are the same classes in both
 packages and the C++ library loads once (``libavif_tpu_torch/_shared.py``).
 
-The inter path is not ported: ``interenc`` and ``interpred`` are not on
-the still path, and ``interenc.py:591`` imports
-``..frame._looks_like_screen_content``, which here resolves to
-``libavif_tpu_torch.codec.frame`` (ROADMAP queue 1).
+The inter path (``interenc``, ``interpred``, ``inter``, ``interdec``,
+``mvpred``, ``mvproj``, ``obmc``, ``warp``, ``refs``, ``stream``,
+``superres``) is shared the same way. ``interenc``'s
+``from ..frame import _looks_like_screen_content`` resolves to
+``libavif_tpu_torch.codec.frame``, and the planner of each of its frames
+asks ``rdsearch_device.plan_costs_device`` for the RD pre-pass, which
+runs on the device the port's ``encode_sequence_frames`` holds for it
+(``held_for_planner``).
 """
 
 from ..._shared import shared_path

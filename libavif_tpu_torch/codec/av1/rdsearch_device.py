@@ -33,8 +33,10 @@ shared numpy path, as in the reference.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -57,7 +59,8 @@ from .rdsearch import (
     speed_config,
 )
 
-__all__ = ["plan_costs_device", "dispatch_plan_costs", "materialize_plan_costs", "MIN_PELS"]
+__all__ = ["plan_costs_device", "dispatch_plan_costs", "materialize_plan_costs",
+           "held_for_planner", "MIN_PELS"]
 
 # Smaller frames take the numpy path (reference: rdsearch_device.py:516).
 MIN_PELS = 131072
@@ -516,7 +519,34 @@ def materialize_plan_costs(handle):
     return res
 
 
+# The device of planners that shared code builds without a handle (every
+# frame of an inter GOP): one slot per thread.
+_held = threading.local()
+
+
+@contextlib.contextmanager
+def held_for_planner(device, shape: tuple, qindex: int, speed: int, bd: int):
+    """Within the block, every ``plan_costs_device`` call on this thread
+    that asks for a frame of ``shape`` at this qindex, speed and bit
+    depth runs its program on ``device``. The slot is keyed on those, not
+    on the array, which the planner may have converted. Yields the list
+    of the handles dispatched (None for a frame under ``MIN_PELS``), so
+    the caller can check that each was read."""
+    handles: list = []
+    _held.entry = ((tuple(shape), qindex, speed, bd), torch.device(device), handles)
+    try:
+        yield handles
+    finally:
+        _held.entry = None
+
+
 def plan_costs_device(src: np.ndarray, qindex: int, speed: int, bd: int, device=None):
     """Run the cost program and wait for its tables (None under
-    ``MIN_PELS``)."""
+    ``MIN_PELS``): on the device held for this frame
+    (``held_for_planner``), or else on ``device``."""
+    entry = getattr(_held, "entry", None)
+    if entry is not None and entry[0] == (tuple(np.shape(src)), qindex, speed, bd):
+        handle = dispatch_plan_costs(src, qindex, speed, bd, entry[1])
+        entry[2].append(handle)
+        return materialize_plan_costs(handle)
     return materialize_plan_costs(dispatch_plan_costs(src, qindex, speed, bd, device))

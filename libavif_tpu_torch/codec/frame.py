@@ -1,13 +1,17 @@
 """Frame-level codec seam: Image planes ⇄ OBU stream.
 
-Port of ``libavif_tpu/codec/frame.py`` for stills. Two codecs sit behind
-it, chosen by ``FrameParams.codec``:
+Port of ``libavif_tpu/codec/frame.py``: stills, GOPs of an animation
+(``encode_sequence_frames``) and track samples decoded against a
+``StreamDecoder``. Two codecs sit behind it, chosen by
+``FrameParams.codec``:
 
 - ``"auto"`` (the default) and ``"spec"``: spec-conformant AV1, which
   every AVIF decoder reads. The encoder and decoder are the shared host
   code of ``codec/av1/`` (see its package docstring); the one device
   program is the RD pre-pass (``av1/rdsearch_device.py``), dispatched for
-  every large enough frame of a batch before the host encodes any.
+  every large enough still of a batch before the host encodes any, and
+  for every frame of an inter-coded GOP as its planner asks. Motion
+  search runs on the host.
 - ``"native"``: the own format. The OBU stream is a standard AV1
   sequence-header OBU followed by one OBU_FRAME whose payload is the
   codec's own frame format:
@@ -47,6 +51,7 @@ from libavif_tpu.containers.items import CodecConfiguration
 from libavif_tpu.containers.obu import (
     OBU_FRAME,
     OBU_SEQUENCE_HEADER,
+    OBU_TEMPORAL_DELIMITER,
     SequenceHeader,
     find_sequence_header,
     parse_sequence_header,
@@ -64,7 +69,7 @@ from ..ops.filters import cdef_threshold, deblock_threshold
 from ..ops.quant import quality_to_qindex, step_sizes
 from . import entropy, recon
 from .av1 import encode as av1_encode
-from .av1 import rdsearch_device, still
+from .av1 import interenc, rdsearch_device, still
 from .transfer import finish_fetch, start_fetch, upload
 
 FRAME_MAGIC = 0x5A
@@ -426,6 +431,46 @@ def encode_frame(image: Image, params: FrameParams, device=None) -> tuple[bytes,
     return encode_frames_pipelined([image], params, device)[0]
 
 
+def encode_sequence_frames(images: list[Image], params: FrameParams,
+                           device=None) -> list[tuple[bytes, SequenceHeader]]:
+    """Encode one GOP: frame 0 as a KEY frame, the rest INTER-coded against
+    the previous reconstruction (the shared ``av1.interenc``). The own
+    format, lossless and a single frame encode as independent stills
+    through ``encode_frames_pipelined`` on ``device``.
+
+    The inter encoder builds each frame's planner itself, with no handle:
+    the key frame's for its partitions and modes, each inter frame's for
+    the modes of its intra cells. At speed <= 6 every one of them asks
+    ``rdsearch_device.plan_costs_device`` for the RD pre-pass, which runs
+    here on ``device`` (``held_for_planner``). A frame whose planner did
+    not read its tables on ``device`` raises, as on the still path: the
+    shared planner would quietly take its numpy path. Motion search runs
+    on the host."""
+    device = torch.device(device) if device is not None else default_device()
+    if not _spec_av1_enabled(params.codec) or params.lossless or len(images) < 2:
+        return encode_frames_pipelined(images, params, device)
+    im0 = images[0]
+    if im0.depth not in (8, 10, 12):
+        raise AvifError(Result.UNSUPPORTED_DEPTH, f"depth {im0.depth}")
+    qindex = _spec_qindex(params)
+    cdef_on = params.cdef is not False and params.speed <= 8
+    with rdsearch_device.held_for_planner(device, (im0.height, im0.width), qindex,
+                                          params.speed, im0.depth) as handles:
+        payloads = interenc.encode_inter_sequence(
+            [[im.yuv_planes[c] for c in range(_coded_planes(im))] for im in images],
+            qindex, speed=params.speed,
+            enable_deblock=params.deblock is not False,
+            enable_cdef=cdef_on, cdef_search=cdef_on,
+            **_spec_signalling(im0),
+        )
+    wanted = len(images) if params.speed <= 6 else 0
+    if len(handles) != wanted or any(h is not None and not h.used for h in handles):
+        raise RuntimeError(f"the RD pre-pass tables were not read on {device} for every frame "
+                           f"({sum(h is not None and h.used for h in handles)} of {wanted})")
+    hdr = find_sequence_header(payloads[0])
+    return [(p, hdr) for p in payloads]
+
+
 # ---------------------------------------------------------------- decode
 
 
@@ -461,7 +506,9 @@ def _plane_dims(hdr: SequenceHeader, c: int, width: int, height: int) -> tuple[i
     )
 
 
-def _image_for_header(seq: SequenceHeader, w: int, h: int) -> Image:
+def _image_for_header(seq: SequenceHeader, w: int, h: int, cicp: bool = True) -> Image:
+    """An empty image of the header's format. ``cicp=False`` leaves the
+    image's own (unspecified) colour description in place."""
     if seq.monochrome:
         fmt = PixelFormat.YUV400
     elif seq.subsampling_x and seq.subsampling_y:
@@ -472,9 +519,10 @@ def _image_for_header(seq: SequenceHeader, w: int, h: int) -> Image:
         fmt = PixelFormat.YUV444
     out = Image(w, h, seq.bit_depth, fmt)
     out.yuv_range = Range.FULL if seq.color_range else Range.LIMITED
-    out.color_primaries = seq.color_primaries
-    out.transfer_characteristics = seq.transfer_characteristics
-    out.matrix_coefficients = seq.matrix_coefficients
+    if cicp:
+        out.color_primaries = seq.color_primaries
+        out.transfer_characteristics = seq.transfer_characteristics
+        out.matrix_coefficients = seq.matrix_coefficients
     out.chroma_sample_position = ChromaSamplePosition(seq.chroma_sample_position)
     out.allocate_planes("yuv")
     return out
@@ -505,11 +553,21 @@ def _is_spec_av1(data: bytes) -> bool:
     return frame is not None and (not frame.payload or frame.payload[0] != FRAME_MAGIC)
 
 
-def _decode_frame_spec(data: bytes, width: int = 0, height: int = 0) -> Image:
-    """Decode a spec-AV1 still on the host (the shared ``codec/av1``
-    decoder); width/height override the frame size."""
-    planes, seq, hdr = still.decode_still(data)
-    out = _image_for_header(seq, width or hdr.width, height or hdr.height)
+def _decode_frame_spec(data: bytes, width: int = 0, height: int = 0, stream=None) -> Image:
+    """Decode a spec-AV1 temporal unit on the host (the shared
+    ``codec/av1`` decoder); width/height override the frame size. With
+    ``stream`` (a ``StreamDecoder``) the unit decodes against the
+    stream's reference state, so it may be an inter frame. The colour
+    description is copied only when the sequence header carries one."""
+    if stream is not None:
+        shown = stream.decode_obus(data)
+        if not shown:
+            raise AvifError(Result.BMFF_PARSE_FAILED, "sample produced no frame")
+        planes, seq, hdr = shown[-1]
+    else:
+        planes, seq, hdr = still.decode_still(data)
+    out = _image_for_header(seq, width or hdr.width, height or hdr.height,
+                            cicp=seq.color_description_present)
     for c, plane in enumerate(planes):
         ph, pw = out.yuv_planes[c].shape
         out.yuv_planes[c][:, :] = plane[:ph, :pw].astype(out.dtype)
@@ -566,12 +624,30 @@ def decode_frames_pipelined(streams: list[bytes], device=None) -> list[Image]:
     )
 
 
-def decode_frame(data: bytes, width: int = 0, height: int = 0, device=None) -> Image:
+def _last_temporal_unit(data: bytes) -> bytes:
+    """A layered stream (``Encoder.write_progressive``) may put own-format
+    layers before one spec temporal unit: the OBUs from the last temporal
+    delimiter on, which the spec decoder reads alone. Other streams come
+    back as they are."""
+    obus = split_obus(data)
+    if not any(o.obu_type == OBU_FRAME and o.payload and o.payload[0] == FRAME_MAGIC for o in obus):
+        return data
+    td = max(i for i, o in enumerate(obus) if o.obu_type == OBU_TEMPORAL_DELIMITER)
+    s = RWStream()
+    for o in obus[td:]:
+        write_obu(s, o.obu_type, o.payload)
+    return s.data()
+
+
+def decode_frame(data: bytes, width: int = 0, height: int = 0, stream=None,
+                 device=None) -> Image:
     """Decode one OBU stream into an Image. width/height override the
     sequence-header size (the container wins). A spec-AV1 stream decodes
-    on the host, whatever ``device`` is."""
+    on the host, whatever ``device`` is; with ``stream`` (a
+    ``codec.av1.stream.StreamDecoder``, one per track) it decodes against
+    the frames the stream decoded before it."""
     if _is_spec_av1(data):
-        return _decode_frame_spec(data, width, height)
+        return _decode_frame_spec(_last_temporal_unit(data), width, height, stream)
     return _decode(
         [_parse_own_format(data, width, height)],
         torch.device(device) if device is not None else default_device(),

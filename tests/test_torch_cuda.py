@@ -1,6 +1,6 @@
 """Tests that need an NVIDIA GPU: K1, the own-format path, the spec
-path's RD pre-pass and the pixel pipeline on the card, each held against
-the port's own plain PyTorch path on the CPU.
+path's RD pre-pass, the pixel pipeline and animations on the card, each
+held against the port's own plain PyTorch path on the CPU.
 
 They skip where ``torch.cuda.is_available()`` is false. This file imports
 no jax (the machine with the card has none), so on that machine it runs
@@ -183,3 +183,63 @@ def test_png_path_converts_on_the_card(cuda, tmp_path):
     assert out.shape == px.shape
     mse = np.mean((out[..., :3] - px[..., :3]) ** 2)
     assert 10 * np.log10(255.0**2 / mse) > 30
+
+
+def _pan(n, w, h):
+    """n frames of a smooth pattern panning 3 px right and 2 px down per frame."""
+    frames = []
+    for k in range(n):
+        img = Image(w, h, 8, PixelFormat.YUV420)
+        img.allocate_planes("yuv")
+        for c, p in enumerate(img.yuv_planes):
+            s = 1 if c == 0 else 2
+            yy, xx = np.mgrid[0 : p.shape[0], 0 : p.shape[1]]
+            x, y = xx * s + 3 * k, yy * s + 2 * k
+            p[:] = (128 + 90 * np.sin(x / 9.0 + c) * np.cos(y / 13.0)).astype(np.uint8)
+        frames.append(img)
+    return frames
+
+
+def _animate(frames, dev, **settings):
+    enc = api.Encoder(device=dev)
+    for k, v in settings.items():
+        setattr(enc, k, v)
+    for f in frames:
+        enc.add_image(f)
+    return enc.finish()
+
+
+@pytest.mark.cuda
+def test_own_format_animation_on_card_equal_cpu(cuda):
+    frames = _pan(4, 96, 64)
+    before = cuda_kernels.transform_2d.launches
+    on_card = _animate(frames, cuda, codec_choice="native", quality=75)
+    assert cuda_kernels.transform_2d.launches > before
+    assert on_card == _animate(frames, "cpu", codec_choice="native", quality=75)
+    decoded = []
+    for dev in (cuda, "cpu"):
+        d = api.Decoder(device=dev)
+        d.parse(on_card)
+        decoded.append(d.read_all())
+    assert len(decoded[0]) == len(decoded[1]) == 4
+    for a, b in zip(*decoded):
+        for pa, pb in zip(a.yuv_planes, b.yuv_planes):
+            np.testing.assert_array_equal(pa, pb)
+
+
+@pytest.mark.cuda
+def test_spec_gop_runs_the_rd_program_on_the_card(cuda, monkeypatch):
+    """Every frame's planner of an inter-coded GOP (the key frame's, and
+    each inter frame's for its intra cells) reads a program run on the
+    encoder's device, the card."""
+    monkeypatch.setattr(rdsearch_device, "MIN_PELS", 1)
+    frames = _pan(3, 128, 96)
+    runs = rdsearch_device.dispatch_plan_costs.runs
+    before = runs.copy()
+    data = _animate(frames, cuda, quality=70)
+    assert runs - before == {"cuda": 3}
+    d = api.Decoder(device=cuda)
+    d.parse(data)
+    for img, src in zip(d.read_all(), frames):
+        err = img.yuv_planes[0].astype(np.float64) - src.yuv_planes[0]
+        assert 10 * np.log10(255.0**2 / max(np.mean(err * err), 1e-12)) > 30

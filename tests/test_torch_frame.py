@@ -92,13 +92,16 @@ def test_frame_layer_matches_jax(settings):
 
 
 def test_unported_paths_raise():
-    # derived items: a grid primary item, and a 16-bit 'sato' still
+    """The derived items that once raised NotImplementedError (a grid
+    primary item, a 16-bit 'sato' still) are ported: ``decode`` reads
+    them as the JAX package does."""
     grid = japi.Encoder().write_grid([_image(6, 64, 64), _image(7, 64, 64)], columns=2, rows=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.decode(grid, device="cpu")
+    _assert_same_image(api.decode(grid, device="cpu"), japi.decode(grid))
     deep = Image(16, 16, 16, PixelFormat.YUV444)
     deep.allocate_planes("yuv")
     for c, plane in enumerate(deep.yuv_planes):
         plane[:] = (np.arange(256).reshape(16, 16) * 251 + c * 999).astype(np.uint16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.decode(japi.Encoder().write(deep), device="cpu")
+    sato = japi.Encoder().write(deep)
+    out = api.decode(sato, device="cpu")
+    assert out.depth == 16
+    _assert_same_image(out, japi.decode(sato))

@@ -8,13 +8,18 @@ guarded probe, which tolerates a missing jax. The subprocess then runs,
 through the port, an own-format 32×32 encode and decode, a spec-AV1
 encode with an alpha plane and the RD pre-pass on, and its decode; then
 PNG -> AVIF -> PNG (write a PNG, read it, encode, decode, write the PNG
-back) and a gain-map compute.
+back) and a gain-map compute; then, through ``Encoder`` and ``Decoder``,
+a 3-frame inter-coded animation (``next_image`` and ``read_all``), a
+grid and a 16-bit ``sato`` still; and last ``python -m
+libavif_tpu_torch.cli.avifenc``, ``avifdec`` and ``gainmaputil`` (as
+``runpy`` runs them).
 
 Shared host code is the JAX package's, loaded by path under the port's
 name (``libavif_tpu_torch/_shared.py``): ``codec/av1``, ``pixels``,
 ``io_formats`` and ``hdr``. The modules those files reach outside their
 directory are aliases of the JAX package's; the port's own modules
-(``rdsearch_device``, ``reformat``, ``colr``) shadow the reference's.
+(``rdsearch_device``, ``reformat``, ``colr``, ``api.encoder``,
+``api.decoder``) shadow the reference's.
 """
 
 import json
@@ -72,6 +77,56 @@ rgb_img = io_formats.read_image("in.png", requested_format=PixelFormat.YUV420)
 rgb_out = decode(encode_batch([rgb_img], quality=75, speed=6, device="cpu")[0], device="cpu")
 io_formats.write_png("out.png", rgb_out)
 gm = gainmap.compute_gain_map(rgb_out, rgb_out)
+reformat_runs = [reformat.rgb_to_yuv_arrays.runs["cpu"], reformat.yuv_to_rgb_arrays.runs["cpu"]]
+
+import runpy
+from libavif_tpu_torch.api import Decoder, Encoder
+from libavif_tpu_torch.hdr import sampletransform
+
+enc = Encoder(device="cpu")
+enc.timescale = 30
+for k in range(3):
+    frame = Image(64, 48, 8, PixelFormat.YUV420)
+    frame.allocate_planes("yuv")
+    for p in frame.yuv_planes:
+        yy, xx = np.mgrid[0:p.shape[0], 0:p.shape[1]]
+        p[:] = ((xx + 2 * k) * 3 + yy * 2) % 256
+    enc.add_image(frame)
+anim = enc.finish()
+dec = Decoder(device="cpu")
+dec.parse(anim)
+walked = 0
+while dec.next_image():
+    walked += 1
+dec.parse(anim)
+read_all = dec.read_all()
+cells = []
+for _ in range(4):
+    cell = Image(64, 64, 8, PixelFormat.YUV420)
+    cell.allocate_planes("yuv")
+    for p in cell.yuv_planes:
+        p[:] = rng.integers(0, 256, p.shape)
+    cells.append(cell)
+grid_enc = Encoder(device="cpu")
+grid_enc.codec_choice = "native"
+grid_out = decode(grid_enc.write_grid(cells, 2, 2), device="cpu")
+img16 = Image(32, 32, 16, PixelFormat.YUV444)
+img16.allocate_planes("yuv")
+for p in img16.yuv_planes:
+    p[:] = rng.integers(0, 65536, p.shape)
+sato_enc = Encoder(device="cpu")
+sato_enc.quality = 100
+sato_enc.sample_transform_recipe = sampletransform.Recipe.BIT_DEPTH_EXTENSION_12B_4B
+sato = decode(sato_enc.write(img16), device="cpu")
+cli_rcs = []
+for argv in (["avifenc", "in.png", "cli.avif", "-q", "70"], ["avifdec", "cli.avif", "cli.png"],
+             ["avifdec", "cli.avif", "--info"], ["gainmaputil", "combine", "in.png", "in.png", "gm.avif"],
+             ["gainmaputil", "printmetadata", "gm.avif"]):
+    sys.argv = argv
+    try:
+        runpy.run_module(f"libavif_tpu_torch.cli.{argv[0]}", run_name="__main__")
+    except SystemExit as e:
+        cli_rcs.append(e.code)
 print(json.dumps({
     "attempts": attempts,
     "jax_modules": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
@@ -83,7 +138,12 @@ print(json.dumps({
     "rd_runs": rd_runs,
     "png_shape": list(np.asarray(PILImage.open("out.png")).shape),
     "gain_map_shape": list(gm.image.yuv_planes[0].shape),
-    "reformat_runs": [reformat.rgb_to_yuv_arrays.runs["cpu"], reformat.yuv_to_rgb_arrays.runs["cpu"]],
+    "reformat_runs": reformat_runs,
+    "animation": [walked, len(read_all), len(anim)],
+    "grid_shape": list(grid_out.yuv_planes[0].shape),
+    "sato": [sato.depth, bool((sato.yuv_planes[0] == img16.yuv_planes[0]).all())],
+    "cli_rcs": cli_rcs,
+    "cli_png_shape": list(np.asarray(PILImage.open("cli.png")).shape),
     "one_image_class": libavif_tpu.image.Image is io_formats.png_jpeg.Image,
     "one_gain_map_class": libavif_tpu.image.GainMap is gainmap.GainMap,
 }))
@@ -109,6 +169,10 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     # PNG read + gain-map quantize; PNG write + the two linear renditions
     assert result["reformat_runs"] == [2, 3]
     assert result["one_image_class"] and result["one_gain_map_class"]
+    assert result["animation"][:2] == [3, 3] and result["animation"][2] > 0
+    assert result["grid_shape"] == [128, 128]
+    assert result["sato"] == [16, True]
+    assert result["cli_rcs"] == [0, 0, 0, 0, 0] and result["cli_png_shape"] == [24, 40, 3]
 
 
 def _aliased():
@@ -118,7 +182,25 @@ def _aliased():
 
 
 def test_alias_table_covers_what_the_shared_files_import():
-    assert {"image", "utils.fractions", "utils.streams", "constants"} <= set(_aliased())
+    assert {"image", "utils.fractions", "utils.streams", "constants", "containers.items",
+            "containers.parse", "containers.write", "containers.mini", "utils.exif"} <= set(_aliased())
+
+
+def test_shared_files_reach_one_copy_of_the_container_classes():
+    """A file loaded by path that imports ``..containers.items`` (or
+    ``.write``, ``.parse``, ``.mini``, ``..utils.exif``) gets the JAX
+    package's module, so ``Property`` and ``OutputItem`` are one class."""
+    import sys
+
+    import libavif_tpu.containers.items as items
+    import libavif_tpu.containers.write as write
+    from libavif_tpu_torch.api import encoder
+    from libavif_tpu_torch.hdr import gainmap
+
+    assert sys.modules["libavif_tpu_torch.containers.items"].Property is items.Property
+    assert sys.modules["libavif_tpu_torch.containers.write"].OutputItem is write.OutputItem
+    assert encoder.Property is items.Property and encoder.OutputItem is write.OutputItem
+    assert gainmap.GainMap is sys.modules["libavif_tpu_torch.image"].GainMap
 
 
 @pytest.mark.parametrize("name", _aliased())
@@ -138,7 +220,11 @@ def test_shared_modules_are_aliases_not_copies(name):
      ("pixels.scale", "libavif_tpu"), ("pixels.primaries", "libavif_tpu"),
      ("io_formats.png_jpeg", "libavif_tpu"), ("io_formats.y4m", "libavif_tpu"),
      ("hdr.gainmap", "libavif_tpu"), ("codec.av1.rdsearch_device", "libavif_tpu_torch"),
-     ("codec.av1.rdsearch", "libavif_tpu")],
+     ("codec.av1.rdsearch", "libavif_tpu"), ("codec.av1.interenc", "libavif_tpu"),
+     ("codec.av1.stream", "libavif_tpu"), ("hdr.sampletransform", "libavif_tpu"),
+     ("api.io", "libavif_tpu"), ("api.encoder", "libavif_tpu_torch"),
+     ("api.decoder", "libavif_tpu_torch"), ("cli.avifenc", "libavif_tpu"),
+     ("cli.avifdec", "libavif_tpu"), ("cli.gainmaputil", "libavif_tpu")],
 )
 def test_shared_packages_resolve_to_the_right_files(module, owner):
     """Loaded under the port's name from the port's file (shadowing) or
