@@ -6,16 +6,29 @@ Phases, each printed as it runs; any failure ends the run non-zero:
 
   1. device: the card's name and power limit, torch and CUDA versions;
      exits non-zero when no CUDA device is available;
-  2. build: K1 (libavif_tpu_torch/csrc/transform2d.cu) from the sources;
+  2. build: K1 (libavif_tpu_torch/csrc/transform2d.cu) and K2
+     (csrc/encode_step.cu) from the sources, one nvcc per source, in
+     parallel;
   3. K1 on the card against its plain PyTorch version, every transform
      type and size, forward and inverse, with inputs that wrap int32;
-     both timed at the main path's shape;
+     both timed at the decode path's shape (1536 blocks of 16x16,
+     inverse), the kernel also device-only from torch.profiler;
+ 3b. K2, the encode wavefront step, on the card against its plain
+     version (torch.equal) for n in {4, 8, 16, 32}, depths 8/10/12,
+     speeds 0/3/6/9 and lossless; both timed per diagonal at the main
+     path's shapes (32 luma lanes; 2 x 16 chroma lanes), CUDA events
+     around the plane loop, the kernel also device-only from
+     torch.profiler;
   4. own-format path: 8 frames of 768x512 4:2:0 8-bit through
      libavif_tpu_torch.api.encode_batch(quality=75, speed=6,
-     codec="native"), counting K1 launches;
+     codec="native"): K2 launches 8 x (79 + 39), none of K1; then the
+     same batch under torch.profiler (device busy share), and its device
+     stage and host entropy coding timed alone;
   5. the same first frame encoded on the CPU (plain versions): the .avif
      bytes must be identical;
   6. round trip: decode on the card, equal to the CPU decode; Y-PSNR;
+     the 8 files decoded on the card, counting K1 launches (one per
+     transform type per plane group);
   7. RD tables: frame 0's luma plane through the spec encoder's RD
      pre-pass on the card and on the CPU; satd/delta equal (torch.equal),
      dist/rate within the CPU test's tolerance, the count of qcost
@@ -55,10 +68,10 @@ Phases, each printed as it runs; any failure ends the run non-zero:
      and Y-PSNR within 0.3 dB per frame; nth_image(5) and read_all equal
      to the sequential decode;
  14. own-format animation: the same frames with codec_choice="native":
-     K1 launches 8 x (79 + 39) x 2, bytes equal to the CPU port's,
-     read_all on the card equal to the CPU decode;
+     K2 launches 8 x (79 + 39) and no K1 launch, bytes equal to the CPU
+     port's, read_all on the card equal to the CPU decode;
  15. grid: 2x2 cells of 768x512 (1536x1024) with both codecs: 4 RD runs
-     on the card for the spec cells, the own-format cells through K1;
+     on the card for the spec cells, the own-format cells through K2;
      the grid decode equals the cells decoded one by one;
  16. still variants at 768x512 on the card, read back by
      Decoder(device=card): write_progressive([50, 75]) with both layers
@@ -90,7 +103,12 @@ W, H = 768, 512
 QUALITY = 75
 SPEED = 6
 BATCH = 8
-K1_SHAPE = (416, 16)  # (blocks, n) of one encode step at speed 6: 32 lanes x 13 modes
+K1_SHAPE = (1536, 16)  # (blocks, n) of one decode launch: a 768x512 luma plane
+# Peak rates of one H100 SXM at 700 W: HBM bytes/s (NVIDIA's data sheet)
+# and int32 multiply-adds/s of the CUDA cores (132 SMs x 64 INT32 lanes x
+# 1.98 GHz boost clock), for the kernels' bounds.
+HBM_BYTES_PER_S = 3.35e12
+IMAD_PER_S = 132 * 64 * 1.98e9
 PHOTO_W, PHOTO_H = 4032, 3024  # a phone camera's 12.2 MP still
 
 
@@ -105,8 +123,8 @@ def smi_line() -> str:
 def gradient_frames():
     """The synthetic gradients of bench.py (used there when no corpus is
     present): two sources, cyclically row-shifted per batch slot."""
-    from libavif_tpu.constants import PixelFormat
-    from libavif_tpu.image import Image
+    from libavif_tpu_torch.constants import PixelFormat
+    from libavif_tpu_torch.image import Image
 
     sources = []
     for seed in (1, 2):
@@ -171,6 +189,128 @@ def check_k1(cuda_kernels, tables, dev):
                                  f"inverse={inverse} B={batch} max|diff|={diff}")
     print(f"[k1] {len(cases)} cases equal to the plain version (torch.equal)", flush=True)
     return worst
+
+
+def profile_device(fn, iters: int = 1):
+    """Run fn() iters times under torch.profiler. Returns (wall s, device
+    ms by kernel name): the CUDA kernels' and copies' self device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0)
+        if us:
+            device[evt.key] = device.get(evt.key, 0.0) + us / 1e3
+    return wall, device
+
+
+def kernel_ms(device: dict, name: str, launches: int):
+    """Device ms per launch of the kernels whose name holds ``name``, or
+    None when the profiler recorded none."""
+    total = sum(ms for key, ms in device.items() if name in key)
+    return total / launches if total else None
+
+
+def step_configs():
+    """K2's configurations: n in {4, 8, 16, 32}; depths 8/10/12 at speeds
+    0/3/6/9; lossless at 8 and 12 bits; two breadth overrides."""
+    cases = []
+    for n in (4, 8, 16, 32):
+        for depth in (8, 10, 12):
+            for speed in (0, 3, 6, 9):
+                cases.append((n, depth, False, speed, (None, None)))
+        cases += [(n, 8, True, 6, (None, None)), (n, 12, True, 6, (None, None))]
+    return cases + [(16, 10, False, 3, (5, 3)), (16, 8, False, 0, (13, 5))]
+
+
+def seeded_planes(seed: int, depth: int, shape, n: int, p: int) -> torch.Tensor:
+    """p seeded ramps with noise, padded to whole n x n blocks, (p, H, W)."""
+    from libavif_tpu_torch.codec import recon
+
+    rng = np.random.default_rng(seed)
+    maxv = (1 << depth) - 1
+    yy, xx = np.mgrid[0:shape[0], 0:shape[1]]
+    planes = [np.clip((yy * 7 + xx * 3 + 11 * k) * (maxv // 255) + rng.integers(0, (maxv + 1) // 8, shape),
+                      0, maxv) for k in range(p)]
+    return torch.from_numpy(np.stack([recon.pad_to_blocks(q, n) for q in planes]).astype(np.int32))
+
+
+def step_bound_ms(p: int, rb: int, cb: int, n: int, n_cand: int) -> tuple:
+    """(bound ms, 'operations' or 'bytes') of one plane loop of K2: the
+    transforms' int32 multiply-adds (4 passes of n^3 per candidate) over
+    the CUDA cores' IMAD rate, against the bytes (source blocks read;
+    levels, reconstruction, modes, symbols and the carry of every
+    diagonal written) over HBM."""
+    blocks = p * rb * cb
+    imads = blocks * n_cand * 4 * n**3
+    nbytes = 4 * (blocks * n * n * 3 + 2 * blocks + (rb + cb - 1) * p * rb * (2 * n + 1))
+    ops_ms, bytes_ms = imads / IMAD_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def check_step(wavefront, recon, tables, dev, smi):
+    """Phase 3b: K2 against its plain version; timed per diagonal at the
+    main path's shapes. Returns the kernel line's numbers for K2."""
+    configs = step_configs()
+    worst = 0
+    for n, depth, lossless, speed, search in configs:
+        src = seeded_planes(n * 7 + depth, depth, (70, 90), n, 2).to(dev)
+        dc, ac = (1, 1) if lossless else tables.step_sizes(150, depth)
+        kw = dict(n=n, depth=depth, lossless=lossless, speed=speed, search=search)
+        plain = recon.encode_plane_with(wavefront.encode_step_reference, src, dc, ac, **kw)
+        before = wavefront.encode_step.launches
+        kernel = recon.encode_plane(src, dc, ac, **kw)
+        torch.cuda.synchronize()
+        rb, cb = src.shape[1] // n, src.shape[2] // n
+        if wavefront.encode_step.launches - before != rb + cb - 1:
+            raise AssertionError(f"K2: {wavefront.encode_step.launches - before} launches for {rb + cb - 1} diagonals")
+        for name, a, b in zip(("modes", "levels", "recon", "tx_types"), kernel, plain):
+            diff = int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+            worst = max(worst, diff)
+            if not torch.equal(a, b):
+                raise AssertionError(f"K2 differs from its plain version: {name}, n={n} depth={depth} "
+                                     f"lossless={lossless} speed={speed} search={search}, max|diff| {diff}")
+    print(f"[k2] {len(configs)} configurations equal to the plain version (torch.equal)", flush=True)
+
+    dc, ac = tables.step_sizes(150, 8)  # q75
+    kw = dict(n=16, depth=8, lossless=False, speed=SPEED)
+    numbers = {}
+    for name, (h, w), p in (("luma", (H, W), 1), ("chroma", (H // 2, W // 2), 2)):
+        src = seeded_planes(3, 8, (h, w), 16, p).to(dev)
+        diagonals = h // 16 + w // 16 - 1
+
+        def kernel():
+            recon.encode_plane(src, dc, ac, **kw)
+
+        def plain():
+            recon.encode_plane_with(wavefront.encode_step_reference, src, dc, ac, **kw)
+
+        p1 = time_ms(plain, 2)
+        k1 = time_ms(kernel, 10)
+        k2 = time_ms(kernel, 10)
+        p2 = time_ms(plain, 2)
+        before = wavefront.encode_step.launches
+        _, device = profile_device(kernel, 5)
+        dev_ms = kernel_ms(device, "encode_step_kernel", wavefront.encode_step.launches - before)
+        bound, bound_by = step_bound_ms(p, h // 16, w // 16, 16, 13)
+        numbers[name] = dict(ms=dev_ms, max_abs_err=worst, call_ms=(k1 + k2) / 2 / diagonals, plain_ms=(p1 + p2) / 2 / diagonals,
+                             bound_ms=bound / diagonals, bound_by=bound_by)
+        print(f"[k2] {name} {w}x{h} P={p} s{SPEED} n=16: per diagonal ({diagonals}) kernel device "
+              f"{dev_ms if dev_ms is None else f'{dev_ms:.5f}'} ms (torch.profiler), call "
+              f"{(k1 + k2) / 2 / diagonals:.5f} ms (runs {k1 / diagonals:.5f}/{k2 / diagonals:.5f}), "
+              f"plain {(p1 + p2) / 2 / diagonals:.5f} ms (runs {p1 / diagonals:.5f}/{p2 / diagonals:.5f}); "
+              f"bound {bound / diagonals:.5f} ms ({bound_by}); CUDA events, order plain, kernel, kernel, "
+              f"plain; on {smi}", flush=True)
+    return numbers
 
 
 def table_diffs(layout, got: np.ndarray, want: np.ndarray):
@@ -239,9 +379,9 @@ def plane_diff(got: np.ndarray, want: np.ndarray, what: str) -> int:
 
 def check_reformat(reformat, dev, smi):
     """Phase 11: each configuration on the card and on the CPU at 12.2 MP."""
-    from libavif_tpu.constants import ChromaUpsampling
-    from libavif_tpu.constants import MatrixCoefficients as MC
-    from libavif_tpu.constants import PixelFormat, Range
+    from libavif_tpu_torch.constants import ChromaUpsampling
+    from libavif_tpu_torch.constants import MatrixCoefficients as MC
+    from libavif_tpu_torch.constants import PixelFormat, Range
 
     yy, xx = np.mgrid[0:PHOTO_H, 0:PHOTO_W]
     noise = np.random.default_rng(11).integers(-24, 25, (PHOTO_H, PHOTO_W, 3))
@@ -301,7 +441,7 @@ def check_rgb_service(io_formats, reformat, encode_batch, decode, smi):
     """Phase 12: PNG -> AVIF -> PNG for 8 RGB frames and one RGBA frame."""
     from PIL import Image as PILImage
 
-    from libavif_tpu.constants import PixelFormat
+    from libavif_tpu_torch.constants import PixelFormat
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
@@ -362,12 +502,11 @@ def check_rgb_service(io_formats, reformat, encode_batch, decode, smi):
           f"the CPU; RGB-PSNR min {min(psnrs):.4f} dB, {sum(map(len, files))} bytes; on {smi}", flush=True)
 
 
-def k1_per_frame() -> int:
-    """K1 launches of one W x H 4:2:0 own-format encode: one forward and one
-    inverse per wavefront diagonal of 16x16 blocks, luma (79 at 768x512)
-    and the two chroma planes together (39)."""
-    diagonals = (-(-W // 16) + -(-H // 16) - 1) + (-(-W // 32) + -(-H // 32) - 1)
-    return 2 * diagonals
+def k2_per_frame() -> int:
+    """K2 launches of one W x H 4:2:0 own-format encode: one per wavefront
+    diagonal of 16x16 blocks, luma (79 at 768x512) and the two chroma
+    planes together (39)."""
+    return (-(-W // 16) + -(-H // 16) - 1) + (-(-W // 32) + -(-H // 32) - 1)
 
 
 def pan_frames():
@@ -375,8 +514,8 @@ def pan_frames():
     down per frame over a textured scene: uniform noise smoothed by a 5x5
     box, the content of the reference's inter-coding tests
     (tests/test_av1_interenc.py:make_frames)."""
-    from libavif_tpu.constants import PixelFormat
-    from libavif_tpu.image import Image
+    from libavif_tpu_torch.constants import PixelFormat
+    from libavif_tpu_torch.image import Image
 
     rng = np.random.default_rng(13)
     ph, pw = H + 2 * BATCH + 6, W + 3 * BATCH + 6
@@ -479,16 +618,16 @@ def check_spec_animation(api, rdsearch_device, frames, dev, smi):
           f"on {smi}", flush=True)
 
 
-def check_native_animation(api, cuda_kernels, frames, dev, smi):
+def check_native_animation(api, cuda_kernels, wavefront, frames, dev, smi):
     """Phase 14: the same frames in the own format."""
-    cuda_kernels.transform_2d.launches = 0
+    cuda_kernels.transform_2d.launches = wavefront.encode_step.launches = 0
     t0 = time.perf_counter()
     data = encode_animation(api, frames, dev, codec_choice="native")
     torch.cuda.synchronize()
     enc_s = time.perf_counter() - t0
-    launches = cuda_kernels.transform_2d.launches
-    if launches != BATCH * k1_per_frame():
-        raise AssertionError(f"K1 launches {launches}, expected {BATCH * k1_per_frame()}")
+    launches = (wavefront.encode_step.launches, cuda_kernels.transform_2d.launches)
+    if launches != (BATCH * k2_per_frame(), 0):
+        raise AssertionError(f"K2, K1 launches {launches}, expected {(BATCH * k2_per_frame(), 0)}")
     t0 = time.perf_counter()
     if encode_animation(api, frames, "cpu", codec_choice="native") != data:
         raise AssertionError("own-format animation: the card's bytes differ from the CPU port's")
@@ -509,15 +648,15 @@ def check_native_animation(api, cuda_kernels, frames, dev, smi):
     p = min(psnr(img.yuv_planes[0], f.yuv_planes[0]) for img, f in zip(decoded[0], frames))
     mp = BATCH * W * H / 1e6
     print(f"[anim] native {BATCH} x {W}x{H} q{QUALITY} s{SPEED}: encode {enc_s:.3f} s ({mp / enc_s:.4f} MP/s), "
-          f"K1 launches {launches}, {len(data)} bytes equal to the CPU port's ({cpu_s:.3f} s); read_all "
+          f"K2 launches {launches[0]}, K1 launches {launches[1]}, {len(data)} bytes equal to the CPU port's ({cpu_s:.3f} s); read_all "
           f"card {times[0]:.3f} s ({mp / times[0]:.4f} MP/s) equals CPU ({times[1]:.3f} s); Y-PSNR min "
           f"{p:.4f} dB; on {smi}", flush=True)
 
 
-def check_grid(api, rdsearch_device, cuda_kernels, frames, dev, smi):
+def check_grid(api, rdsearch_device, cuda_kernels, wavefront, frames, dev, smi):
     """Phase 15: 2x2 grids of 768x512 cells, both codecs."""
-    from libavif_tpu.containers.parse import parse as parse_container
-    from libavif_tpu.containers.parse import read_item_payload
+    from libavif_tpu_torch.containers.parse import parse as parse_container
+    from libavif_tpu_torch.containers.parse import read_item_payload
     from libavif_tpu_torch.codec.frame import decode_frame
 
     cells = frames[:4]
@@ -526,15 +665,16 @@ def check_grid(api, rdsearch_device, cuda_kernels, frames, dev, smi):
         enc = api.Encoder(device=dev)
         enc.quality, enc.speed, enc.codec_choice = QUALITY, SPEED, codec
         runs.clear()
-        cuda_kernels.transform_2d.launches = 0
+        cuda_kernels.transform_2d.launches = wavefront.encode_step.launches = 0
         t0 = time.perf_counter()
         data = enc.write_grid(cells, columns=2, rows=2)
         torch.cuda.synchronize()
         enc_s = time.perf_counter() - t0
-        launches, rd = cuda_kernels.transform_2d.launches, dict(runs)
-        want = ({torch.device(dev).type: 4}, 0) if codec == "auto" else ({}, 4 * k1_per_frame())
+        launches = (wavefront.encode_step.launches, cuda_kernels.transform_2d.launches)
+        rd = dict(runs)
+        want = ({torch.device(dev).type: 4}, (0, 0)) if codec == "auto" else ({}, (4 * k2_per_frame(), 0))
         if (rd, launches) != want:
-            raise AssertionError(f"{codec} grid: RD runs {rd}, K1 launches {launches}, expected {want}")
+            raise AssertionError(f"{codec} grid: RD runs {rd}, K2, K1 launches {launches}, expected {want}")
         t0 = time.perf_counter()
         out = api.Decoder(device=dev).read(data)
         dec_s = time.perf_counter() - t0
@@ -554,15 +694,16 @@ def check_grid(api, rdsearch_device, cuda_kernels, frames, dev, smi):
                     raise AssertionError(f"{codec} grid cell {idx} plane {p} differs from its own decode")
             worst = min(worst, psnr(cell.yuv_planes[0], cells[idx].yuv_planes[0]))
         print(f"[grid] {codec} 2x2 x {W}x{H} ({2 * W}x{2 * H}): encode {enc_s:.3f} s "
-              f"({4 * W * H / 1e6 / enc_s:.4f} MP/s), RD runs {rd}, K1 launches {launches}, {len(data)} bytes; "
+              f"({4 * W * H / 1e6 / enc_s:.4f} MP/s), RD runs {rd}, K2 launches {launches[0]}, K1 launches "
+              f"{launches[1]}, {len(data)} bytes; "
               f"decode {dec_s:.3f} s equals the cells decoded one by one; cell Y-PSNR min {worst:.4f} dB; "
               f"on {smi}", flush=True)
 
 
 def check_still_variants(api, frames, dev, smi):
     """Phase 16: progressive, mini, 16-bit sato and gain-map stills."""
-    from libavif_tpu.constants import ColorPrimaries, MatrixCoefficients, PixelFormat, TransferCharacteristics
-    from libavif_tpu.image import Image
+    from libavif_tpu_torch.constants import ColorPrimaries, MatrixCoefficients, PixelFormat, TransferCharacteristics
+    from libavif_tpu_torch.image import Image
     from libavif_tpu_torch.hdr import gainmap, sampletransform
 
     img = frames[0]
@@ -687,6 +828,46 @@ def check_cli(smi):
           f"runs {counts[0][0]} + {counts[1][1]}, none on the CPU; on {smi}", flush=True)
 
 
+def native_split(frame, imgs, dev):
+    """Phase 4's batch in two stages timed alone: the device stage
+    (upload, the wavefront on the card, fetch of the levels) for every
+    frame, then the host entropy coding of every frame's tiles on the
+    frame layer's thread pool. Returns (device s, entropy s)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from libavif_tpu_torch.codec import recon
+
+    params = frame.FrameParams(quality=QUALITY, speed=SPEED, codec="native")
+    n = params.tx_size
+    dc, ac = frame.step_sizes(params.qindex, 8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = []
+    for img in imgs:
+        padded = [recon.pad_to_blocks(p, n).astype(np.uint8) for p in img.yuv_planes]
+        geoms = tuple((p.shape[0] // n, p.shape[1] // n) for p in padded)
+        packed = np.concatenate([p.reshape(-1) for p in padded])
+        out = recon.encode_frame_device(frame.upload(packed, dev), dc, ac, geoms=geoms, n=n, depth=8,
+                                        lossless=False, speed=SPEED)
+        results.append((geoms, frame.finish_fetch(frame.start_fetch(out))))
+    device_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(frame._workers()) as pool:
+        futures = []
+        for geoms, result in results:
+            off = 0
+            for rb, cb in geoms:
+                nb = rb * cb
+                modes = result[off:off + nb].astype(np.int32).reshape(rb, cb)
+                txs = result[off + nb:off + 2 * nb].astype(np.int32).reshape(rb, cb)
+                levels = result[off + 2 * nb:off + 2 * nb + nb * n * n].astype(np.int32).reshape(rb, cb, n, n)
+                off += 2 * nb + nb * n * n
+                futures += frame._submit_plane_encode(pool, levels, modes, txs, n)
+        for f in futures:
+            f.result()
+    return device_s, time.perf_counter() - t0
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -699,14 +880,15 @@ def main() -> int:
           f"python {sys.version.split()[0]} devices {torch.cuda.device_count()}", flush=True)
     dev = torch.device("cuda", 0)
 
-    from libavif_tpu.containers.parse import parse as parse_container
-    from libavif_tpu.containers.parse import read_item_payload
+    from libavif_tpu_torch.containers.parse import parse as parse_container
+    from libavif_tpu_torch.containers.parse import read_item_payload
     from libavif_tpu_torch import tables
     from libavif_tpu_torch.api import decode, encode_batch
     from libavif_tpu_torch.codec.av1 import rdsearch_device
     from libavif_tpu_torch.codec.av1.still import decode_still
     from libavif_tpu_torch.codec.frame import FrameParams, _spec_qindex
-    from libavif_tpu_torch.ops import _build, cuda_kernels
+    from libavif_tpu_torch.codec import frame, recon
+    from libavif_tpu_torch.ops import _build, cuda_kernels, wavefront
 
     # 2. build
     t0 = time.perf_counter()
@@ -717,46 +899,73 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line:
             print(f"[build] {line.strip()}", flush=True)
 
-    # 3. K1 against its plain version
+    # 3. K1 against its plain version, at the decode path's shape
     max_err = check_k1(cuda_kernels, tables, dev)
     b, n = K1_SHAPE
     x = torch.from_numpy(
-        np.random.default_rng(1).integers(-255, 256, (b, n, n)).astype(np.int32)
+        np.random.default_rng(1).integers(-2048, 2048, (b, n, n)).astype(np.int32)
     ).to(dev)
-    ck, rk = cuda_kernels._bases(0, n, False, str(dev))
+    ck, rk = cuda_kernels._bases(0, n, True, str(dev))
+    shifts = (tables.COS_BIT, tables.COS_BIT + 3)
 
     def kernel():
-        cuda_kernels.transform_2d(x, ck, rk, 10, 11)
+        cuda_kernels.transform_2d(x, ck, rk, *shifts)
 
     def plain():
-        cuda_kernels.transform_2d_reference(x, ck, rk, 10, 11)
+        cuda_kernels.transform_2d_reference(x, ck, rk, *shifts)
 
     p1 = time_ms(plain, 200)
     k1 = time_ms(kernel, 200)
     k2 = time_ms(kernel, 200)
     p2 = time_ms(plain, 200)
+    before = cuda_kernels.transform_2d.launches
+    _, device = profile_device(kernel, 50)
+    k1_dev = kernel_ms(device, "transform2d_kernel", cuda_kernels.transform_2d.launches - before)
     k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
-    print(f"[k1] B={b} n={n} forward DCT: kernel {k_ms:.5f} ms, plain {p_ms:.5f} ms "
-          f"(runs {k1:.5f}/{k2:.5f} vs {p1:.5f}/{p2:.5f}) on {smi}", flush=True)
+    k1_bytes = 4 * (2 * b * n * n + 2 * n * n)
+    k1_ops_ms, k1_bytes_ms = 2 * b * n**3 / IMAD_PER_S * 1e3, k1_bytes / HBM_BYTES_PER_S * 1e3
+    k1_bound = max(k1_ops_ms, k1_bytes_ms)
+    k1_bound_by = "operations" if k1_ops_ms >= k1_bytes_ms else "bytes"
+    print(f"[k1] B={b} n={n} inverse DCT: kernel device {k1_dev if k1_dev is None else f'{k1_dev:.5f}'} ms "
+          f"(torch.profiler, 50 launches), call {k_ms:.5f} ms, plain {p_ms:.5f} ms (CUDA events, runs "
+          f"{k1:.5f}/{k2:.5f} vs {p1:.5f}/{p2:.5f}); bound {k1_bound:.5f} ms ({k1_bound_by}); on {smi}",
+          flush=True)
+
+    # 3b. K2 against its plain version
+    step = check_step(wavefront, recon, tables, dev, smi)
 
     # 4. own-format path
     imgs = gradient_frames()
     t0 = time.perf_counter()
     encode_batch(imgs[:1], quality=QUALITY, speed=SPEED, codec="native", device=dev)
     print(f"[main] warm-up frame {time.perf_counter() - t0:.3f} s", flush=True)
-    cuda_kernels.transform_2d.launches = 0
+    cuda_kernels.transform_2d.launches = wavefront.encode_step.launches = 0
     t0 = time.perf_counter()
     files = encode_batch(imgs, quality=QUALITY, speed=SPEED, codec="native", device=dev)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = cuda_kernels.transform_2d.launches
-    # per frame: (79 luma + 39 chroma diagonals) x (forward + inverse)
-    expected = BATCH * (79 + 39) * 2
-    if launches != expected:
-        raise AssertionError(f"K1 launches {launches}, expected {expected}")
+    launches = (wavefront.encode_step.launches, cuda_kernels.transform_2d.launches)
+    # per frame: one K2 launch per diagonal, 79 luma + 39 chroma; K1 runs on decode only
+    if launches != (BATCH * k2_per_frame(), 0):
+        raise AssertionError(f"K2, K1 launches {launches}, expected {(BATCH * k2_per_frame(), 0)}")
+    step_launches = launches[0]
     mps = BATCH * W * H / 1e6 / dt
     print(f"[main] {BATCH} x {W}x{H} q{QUALITY} s{SPEED}: {dt:.3f} s, {mps:.4f} MP/s, "
-          f"K1 launches {launches}, {sum(map(len, files))} bytes, on {smi}", flush=True)
+          f"K2 launches {launches[0]}, K1 launches {launches[1]}, {sum(map(len, files))} bytes, on {smi}",
+          flush=True)
+    wall, device = profile_device(
+        lambda: encode_batch(imgs, quality=QUALITY, speed=SPEED, codec="native", device=dev))
+    busy = sum(device.values()) / 1e3
+    step_main = kernel_ms(device, "encode_step_kernel", BATCH * k2_per_frame())
+    print(f"[main] under torch.profiler: wall {wall:.3f} s, device busy {busy:.4f} s "
+          f"({100 * busy / wall:.2f}%), K2 device {step_main if step_main is None else f'{step_main:.5f}'} "
+          f"ms per launch; top device entries: "
+          + ", ".join(f"{k[:60]} {v:.3f} ms" for k, v in sorted(device.items(), key=lambda kv: -kv[1])[:4]),
+          flush=True)
+    device_s, entropy_s = native_split(frame, imgs, dev)
+    print(f"[main] split of the same batch: device stage alone (upload, {BATCH * k2_per_frame()} K2 "
+          f"launches, fetch) {device_s:.3f} s; host entropy coding alone {entropy_s:.3f} s; on {smi}",
+          flush=True)
 
     # 5. same bytes on the CPU
     t0 = time.perf_counter()
@@ -781,8 +990,19 @@ def main() -> int:
     psnr = 10 * np.log10(255.0**2 / max(np.mean(err * err), 1e-12))
     if not psnr > 30:
         raise AssertionError(f"Y-PSNR {psnr:.2f} dB is too low for q{QUALITY}")
-    print(f"[decode] card decode {gpu_dec_s:.3f} s equals CPU decode; Y-PSNR {psnr:.4f} dB",
-          flush=True)
+    cuda_kernels.transform_2d.launches = 0
+    t0 = time.perf_counter()
+    for data in files:
+        decode(data, device=dev)
+    torch.cuda.synchronize()
+    dec_all_s = time.perf_counter() - t0
+    k1_launches = cuda_kernels.transform_2d.launches
+    # per frame: each of the 5 transform types over the luma plane and the chroma pair
+    if k1_launches != BATCH * 2 * 5:
+        raise AssertionError(f"K1 launches on decode {k1_launches}, expected {BATCH * 2 * 5}")
+    print(f"[decode] card decode {gpu_dec_s:.3f} s equals CPU decode; Y-PSNR {psnr:.4f} dB; "
+          f"the {BATCH} files on the card {dec_all_s:.3f} s ({BATCH * W * H / 1e6 / dec_all_s:.4f} MP/s), "
+          f"K1 launches {k1_launches}", flush=True)
 
     # 7. RD tables, card against CPU
     qindex = _spec_qindex(FrameParams(quality=QUALITY))
@@ -790,7 +1010,7 @@ def main() -> int:
 
     # 8. spec main path (the default codec)
     runs = rdsearch_device.dispatch_plan_costs.runs
-    cuda_kernels.transform_2d.launches = 0
+    cuda_kernels.transform_2d.launches = wavefront.encode_step.launches = 0
     runs.clear()
     t0 = time.perf_counter()
     spec_files = encode_batch(imgs, quality=QUALITY, speed=SPEED, device=dev)
@@ -874,24 +1094,45 @@ def main() -> int:
 
     frames = pan_frames()
     check_spec_animation(api, rdsearch_device, frames, dev, smi)
-    check_native_animation(api, cuda_kernels, frames, dev, smi)
-    check_grid(api, rdsearch_device, cuda_kernels, frames, dev, smi)
+    check_native_animation(api, cuda_kernels, wavefront, frames, dev, smi)
+    check_grid(api, rdsearch_device, cuda_kernels, wavefront, frames, dev, smi)
     check_still_variants(api, frames, dev, smi)
 
     # 17. the command-line tools
     check_cli(smi)
 
     print(smi, flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "transform_2d",
-        "route": "cuda",
-        "source": "libavif_tpu_torch/csrc/transform2d.cu",
-        "replaces": "libavif_tpu/ops/pallas_kernels.py:84",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-    }]}), flush=True)
+    print(json.dumps({"kernels": [
+        {
+            "name": "transform_2d",
+            "route": "cuda",
+            "source": "libavif_tpu_torch/csrc/transform2d.cu",
+            "replaces": "libavif_tpu/ops/pallas_kernels.py:84",
+            "launches": k1_launches,  # phase 6: the 8 files decoded on the card
+            "max_abs_err": max_err,
+            "ms": k1_dev,
+            "call_ms": k_ms,
+            "plain_ms": p_ms,
+            "bound_ms": k1_bound,
+            "bound_by": k1_bound_by,
+            "library_ms": None,  # no PyTorch call: CUDA has no int32 matmul, and K1 rounds between passes
+        },
+        {
+            "name": "encode_step",
+            "route": "cuda",
+            "source": "libavif_tpu_torch/csrc/encode_step.cu",
+            "replaces": "libavif_tpu/codec/recon.py:284",
+            "launches": step_launches,  # phase 4: the 8-frame own-format batch
+            "max_abs_err": step["luma"]["max_abs_err"],  # over phase 3b's configurations
+            "ms": step["luma"]["ms"],
+            "call_ms": step["luma"]["call_ms"],
+            "plain_ms": step["luma"]["plain_ms"],
+            "bound_ms": step["luma"]["bound_ms"],
+            "bound_by": step["luma"]["bound_by"],
+            "library_ms": None,  # no PyTorch call computes the fused mode search
+            "chroma": step["chroma"],
+        },
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}), flush=True)

@@ -19,37 +19,21 @@ files; ``encode``, ``decode``, ``encode_batch``) and ``cli``
 ``gainmaputil``). The default codec is spec-conformant AV1, as in the
 JAX package.
 
-Shared with ``libavif_tpu``, because they are jax-free all the way down:
-
-  - ``libavif_tpu/__init__.py`` (it tolerates a missing jax);
-  - by alias in ``sys.modules`` (``_shared.ALIASED``): ``constants``,
-    ``image``, ``containers.*`` (ISOBMFF/HEIF read and write, OBUs,
-    ``mini``), ``utils.streams``, ``utils.fractions``, ``utils.exif``,
-    ``models.av1.msac`` and ``native`` (the C++ msac coder, built and
-    loaded by ctypes);
-  - by path (``_shared.shared_path``), for packages whose reference
-    reaches jax: the port's package loads the reference's files under
-    its own name, and a file of the same name in the port's directory
-    shadows the reference's.
-      - ``codec/av1/*``: the spec-AV1 encoder and decoder (stills and
-        inter frames), host code; ``rdsearch_device`` is shadowed by the
-        PyTorch RD pre-pass;
-      - ``pixels/{primaries,scale,iccmaker}``; ``reformat`` (PyTorch)
-        and ``colr`` (numpy only) are shadowed;
-      - ``io_formats/{png_jpeg,y4m,jpeg_gainmap}``, with the port's own
-        ``__init__``;
-      - ``hdr/{gainmap,sampletransform}``, with the port's own
-        ``__init__``;
-      - ``api/io``, with the port's own ``encoder``, ``decoder`` and
-        ``__init__``;
-      - ``cli/{avifenc,avifdec,gainmaputil}``, with the port's own
-        ``__init__``.
-
-No other ``libavif_tpu`` module may be imported here: ``codec/__init__``
-imports ``frame`` -> ``recon`` -> jax, ``codec/entropy`` imports
-``ops.intra`` -> jax, ``pixels/reformat`` imports jax, and ``ops.quant``,
-``ops.transforms`` and ``api.encoder`` depend on jax themselves.
-Everything else is ported into this package.
+The package is self-contained: it imports nothing of ``libavif_tpu``.
+The JAX package's host code that imports no jax is copied here at the
+same relative paths, verbatim apart from import lines
+(``tests/test_torch_no_jax.py`` holds each copy to its reference):
+``constants``, ``image``, ``containers/*`` (ISOBMFF/HEIF read and write,
+OBUs, ``mini``), ``utils/{streams,fractions,exif,diagnostics}``,
+``models/av1/msac``, ``native`` (the C++ msac coder, built by ``g++``
+into a file ``.gitignore`` lists and loaded by ctypes), ``codec/av1/*``
+(the spec-AV1 encoder and decoder, host code), ``pixels/{primaries,
+scale,iccmaker}``, ``io_formats/{png_jpeg,y4m,jpeg_gainmap}``,
+``hdr/{gainmap,sampletransform}``, ``api/io`` and
+``cli/{avifenc,avifdec,gainmaputil}``. The classes they define
+(``Image``, ``GainMap``, ``AvifError``, ``SequenceHeader``, ``Property``,
+``OutputItem``) are the port's own; data passes between the packages as
+numpy arrays and bytes.
 
 Every public function that touches a device takes ``device=``; the
 default is ``default_device()``. There is no global device state.

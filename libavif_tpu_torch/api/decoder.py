@@ -1,7 +1,6 @@
 """The AVIF decoder — the port of ``libavif_tpu.api.decoder``.
 
-``Decoder`` parses the container with the shared
-``libavif_tpu.containers.parse``, picks the source (items or tracks),
+``Decoder`` parses the container with ``containers.parse``, picks the source (items or tracks),
 decodes through the frame layer on its ``device`` (own-format items,
 cells and samples on the device; spec AV1 on the host) and puts the
 metadata on the image as the JAX package's ``Decoder`` does: grids
@@ -24,7 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from libavif_tpu.constants import (
+from ..constants import (
     DEFAULT_IMAGE_COUNT_LIMIT,
     DEFAULT_IMAGE_DIMENSION_LIMIT,
     DEFAULT_IMAGE_SIZE_LIMIT,
@@ -35,10 +34,10 @@ from libavif_tpu.constants import (
     TransformFlags,
     pixel_format_info,
 )
-from libavif_tpu.containers.items import KNOWN_PROPERTY_TYPES, Container, Item, Meta
-from libavif_tpu.containers.parse import parse as parse_container
-from libavif_tpu.containers.parse import parse_image_grid, read_item_payload
-from libavif_tpu.image import GainMap, Image
+from ..containers.items import KNOWN_PROPERTY_TYPES, Container, Item, Meta
+from ..containers.parse import parse as parse_container
+from ..containers.parse import parse_image_grid, read_item_payload
+from ..image import GainMap, Image
 
 from .. import default_device
 from ..codec.av1.stream import StreamDecoder

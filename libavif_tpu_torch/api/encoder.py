@@ -3,7 +3,7 @@
 ``Encoder`` builds the item graph (color item, alpha auxiliary item,
 Exif/XMP metadata items; grids, gain maps, sample transforms, layered
 and ``mini`` files), drives the frame layer on its ``device`` and writes
-the container with the shared ``libavif_tpu.containers`` code. Its
+the container with the port's ``containers`` code. Its
 attributes and methods are the JAX package's, with ``device`` added, so
 with the same codec payloads the files are the JAX package's byte for
 byte.
@@ -17,7 +17,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from libavif_tpu.constants import (
+from ..constants import (
     AvifError,
     MatrixCoefficients,
     PixelFormat,
@@ -25,7 +25,7 @@ from libavif_tpu.constants import (
     Result,
     TransformFlags,
 )
-from libavif_tpu.containers.items import (
+from ..containers.items import (
     AuxiliaryType,
     AV1LayeredImageIndexing,
     ColorInformation,
@@ -33,10 +33,10 @@ from libavif_tpu.containers.items import (
     PixelInformation,
     Property,
 )
-from libavif_tpu.containers.mini import write_mini
-from libavif_tpu.containers.write import OutputGroup, OutputItem, write_sequence, write_still
-from libavif_tpu.image import Image, are_grid_dimensions_valid
-from libavif_tpu.utils.exif import irot_imir_to_orientation
+from ..containers.mini import write_mini
+from ..containers.write import OutputGroup, OutputItem, write_sequence, write_still
+from ..image import Image, are_grid_dimensions_valid
+from ..utils.exif import irot_imir_to_orientation
 
 from .. import default_device
 from ..codec.frame import (

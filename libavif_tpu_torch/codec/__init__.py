@@ -1,4 +1,4 @@
-"""The codec seam: spec-conformant AV1 (shared ``codec/av1``, with the RD
+"""The codec seam: spec-conformant AV1 (host ``codec/av1``, with the RD
 pre-pass on the device) and the own format (wavefront reconstruction,
 entropy tiles), behind one frame layer."""
 

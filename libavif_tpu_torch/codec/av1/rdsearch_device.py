@@ -1,10 +1,9 @@
 """The spec encoder's RD pre-pass as one PyTorch program per frame.
 
 Port of ``libavif_tpu/codec/av1/rdsearch_device.py`` (an XLA program in
-the JAX package; no Pallas kernel). This module shadows the reference's
-module of the same name inside ``libavif_tpu_torch.codec.av1``, so the
-shared ``rdsearch.plan_luma`` finds it as ``from . import
-rdsearch_device`` and calls ``materialize_plan_costs(handle)`` or
+the JAX package; no Pallas kernel). The port's copy of
+``rdsearch.plan_luma`` finds it as ``from . import rdsearch_device`` and
+calls ``materialize_plan_costs(handle)`` or
 ``plan_costs_device(...)`` here.
 
 For every searched block size it computes, for all blocks of the frame at
@@ -27,7 +26,7 @@ boundary can change a near-tie decision, not conformance.
 Only the reference's default formulation is carried (GEMM prediction,
 Kronecker-product DCT up to 8x8); neither is a switch here. Frames under
 ``MIN_PELS`` pels, or under 8 on a side, get no program and take the
-shared numpy path, as in the reference.
+numpy path, as in the reference.
 """
 
 from __future__ import annotations
@@ -42,7 +41,7 @@ import numpy as np
 import torch
 
 from ... import default_device
-from ..recon import _first_argmin
+from ...ops.wavefront import first_argmin as _first_argmin
 from ..transfer import finish_fetch, start_fetch, upload
 from . import intra as I
 from . import tables as T
@@ -519,7 +518,7 @@ def materialize_plan_costs(handle):
     return res
 
 
-# The device of planners that shared code builds without a handle (every
+# The device of planners that the host codec builds without a handle (every
 # frame of an inter GOP): one slot per thread.
 _held = threading.local()
 

@@ -1,8 +1,8 @@
 """Host entropy layer: msac tile coding of modes and coefficient levels.
 
 Thin port of the native path of ``libavif_tpu/codec/entropy.py`` over
-the shared C++ coder (``libavif_tpu.native``, built from
-``libavif_tpu/native/msac.cc``). The bitstream is the JAX package's,
+the C++ coder (``libavif_tpu_torch.native``, built from
+``libavif_tpu_torch/native/msac.cc``). The bitstream is the JAX package's,
 byte for byte. There is no pure-Python fallback here: if the C++ coder
 cannot be built, coding raises.
 
@@ -18,7 +18,7 @@ import threading
 
 import numpy as np
 
-from libavif_tpu import native as _native
+from .. import native as _native
 
 _I32P = ctypes.POINTER(ctypes.c_int32)
 _U8P = ctypes.POINTER(ctypes.c_uint8)
@@ -28,14 +28,14 @@ _LOAD_LOCK = threading.Lock()
 
 
 def _lib():
-    # libavif_tpu.native.load() returns None to a second thread that asks
+    # native.load() returns None to a second thread that asks
     # while the first is still building or loading; asking under one lock
     # makes every tile thread wait for the first load to finish.
     with _LOAD_LOCK:
         lib = _native.load()
     if lib is None:
         raise RuntimeError(
-            "the C++ msac coder (libavif_tpu/native/msac.cc) could not be built or loaded"
+            "the C++ msac coder (libavif_tpu_torch/native/msac.cc) could not be built or loaded"
         )
     return lib
 

@@ -6,7 +6,7 @@ Port of ``libavif_tpu/codec/frame.py``: stills, GOPs of an animation
 ``FrameParams.codec``:
 
 - ``"auto"`` (the default) and ``"spec"``: spec-conformant AV1, which
-  every AVIF decoder reads. The encoder and decoder are the shared host
+  every AVIF decoder reads. The encoder and decoder are the host
   code of ``codec/av1/`` (see its package docstring); the one device
   program is the RD pre-pass (``av1/rdsearch_device.py``), dispatched for
   every large enough still of a batch before the host encodes any, and
@@ -39,7 +39,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from libavif_tpu.constants import (
+from ..constants import (
     AvifError,
     ChromaSamplePosition,
     PixelFormat,
@@ -47,8 +47,8 @@ from libavif_tpu.constants import (
     Result,
     pixel_format_info,
 )
-from libavif_tpu.containers.items import CodecConfiguration
-from libavif_tpu.containers.obu import (
+from ..containers.items import CodecConfiguration
+from ..containers.obu import (
     OBU_FRAME,
     OBU_SEQUENCE_HEADER,
     OBU_TEMPORAL_DELIMITER,
@@ -61,8 +61,8 @@ from libavif_tpu.containers.obu import (
     write_obu,
     write_sequence_header,
 )
-from libavif_tpu.image import Image
-from libavif_tpu.utils.streams import ROStream, RWStream
+from ..image import Image
+from ..utils.streams import ROStream, RWStream
 
 from .. import default_device
 from ..ops.filters import cdef_threshold, deblock_threshold
@@ -265,7 +265,7 @@ def _encode_frame_spec_lossless(image: Image, params: FrameParams) -> tuple[byte
 
 def _encode_frame_spec_lossy(image: Image, params: FrameParams,
                              dev_handle=None) -> tuple[bytes, SequenceHeader]:
-    """Spec-conformant lossy AV1 (the shared RD-search encoder). With
+    """Spec-conformant lossy AV1 (the host RD-search encoder). With
     ``dev_handle`` the luma planner reads its cost tables from the RD
     pre-pass dispatched for this frame."""
     planes = [image.yuv_planes[c] for c in range(_coded_planes(image))]
@@ -308,7 +308,7 @@ def _encode_spec(images: list[Image], params: FrameParams,
     out = []
     for k, (image, handle) in enumerate(zip(images, handles)):
         out.append(_encode_frame_spec_lossy(image, params, dev_handle=handle))
-        # the shared planner turns a failure to read the tables into its
+        # the host planner turns a failure to read the tables into its
         # numpy path; here it is an error
         if handle is not None and not handle.used:
             raise RuntimeError(f"frame {k}: the RD pre-pass tables were not read")
@@ -434,7 +434,7 @@ def encode_frame(image: Image, params: FrameParams, device=None) -> tuple[bytes,
 def encode_sequence_frames(images: list[Image], params: FrameParams,
                            device=None) -> list[tuple[bytes, SequenceHeader]]:
     """Encode one GOP: frame 0 as a KEY frame, the rest INTER-coded against
-    the previous reconstruction (the shared ``av1.interenc``). The own
+    the previous reconstruction (the host ``av1.interenc``). The own
     format, lossless and a single frame encode as independent stills
     through ``encode_frames_pipelined`` on ``device``.
 
@@ -444,7 +444,7 @@ def encode_sequence_frames(images: list[Image], params: FrameParams,
     ``rdsearch_device.plan_costs_device`` for the RD pre-pass, which runs
     here on ``device`` (``held_for_planner``). A frame whose planner did
     not read its tables on ``device`` raises, as on the still path: the
-    shared planner would quietly take its numpy path. Motion search runs
+    host planner would quietly take its numpy path. Motion search runs
     on the host."""
     device = torch.device(device) if device is not None else default_device()
     if not _spec_av1_enabled(params.codec) or params.lossless or len(images) < 2:
@@ -554,7 +554,7 @@ def _is_spec_av1(data: bytes) -> bool:
 
 
 def _decode_frame_spec(data: bytes, width: int = 0, height: int = 0, stream=None) -> Image:
-    """Decode a spec-AV1 temporal unit on the host (the shared
+    """Decode a spec-AV1 temporal unit on the host (the
     ``codec/av1`` decoder); width/height override the frame size. With
     ``stream`` (a ``StreamDecoder``) the unit decodes against the
     stream's reference state, so it may be an inter frame. The colour

@@ -14,7 +14,9 @@ per-lane bottom rows, right columns and top-row corners:
 The JAX ``lax.scan`` is a Python loop over the rb+cb-1 diagonals here,
 and the JAX ``vmap`` over same-geometry planes (U with V) is a leading
 plane dimension P. Every step is launched asynchronously; nothing in the
-loop waits for the device.
+loop waits for the device. On encode each step is one launch of the K2
+kernel (``ops/wavefront.py``, ``csrc/encode_step.cu``) on a CUDA tensor,
+and its plain version on a CPU tensor.
 
 The encoder searches every (mode, transform) pair of the speed's search
 set exhaustively: predict, residual, forward transform, deadzone
@@ -25,11 +27,10 @@ decisions — hence the bitstream — are the same on every device.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
+from ..ops import wavefront
 from ..ops.filters import cdef_plane, deblock_plane
 from ..ops.intra import (
     D45_PRED,
@@ -49,9 +50,9 @@ from ..ops.transforms import (
     DCT_DCT,
     IDTX,
     WHT_WHT,
-    forward_transform,
     inverse_transform,
 )
+from ..ops.wavefront import init_carry, steps_mat, wavefront_neighbors
 
 _I32 = torch.int32
 
@@ -104,28 +105,6 @@ def pad_to_blocks(plane: np.ndarray, n: int) -> np.ndarray:
     return np.pad(plane, ((0, hp - h), (0, wp - w)), mode="edge")
 
 
-def _steps_mat(n: int, dc_step: int, ac_step: int, device) -> torch.Tensor:
-    steps = torch.full((n, n), ac_step, dtype=_I32, device=device)
-    steps[0, 0] = dc_step
-    return steps
-
-
-def _bitlength(a: torch.Tensor, maxbits: int = 16) -> torch.Tensor:
-    """Integer bit length of |a| (exact, no float): sum of threshold tests."""
-    bits = torch.zeros_like(a)
-    for k in range(maxbits):
-        bits += (a >= (1 << k)).to(a.dtype)
-    return bits
-
-
-def _rate_bits(levels: torch.Tensor) -> torch.Tensor:
-    """Integer rate proxy (bits) per block: 3 + 2·bitlen per nonzero
-    coefficient, summed over the last two axes."""
-    a = levels.abs()
-    per = torch.where(a > 0, 3 + 2 * _bitlength(a), 0)
-    return per.sum(dim=(-1, -2))
-
-
 def _diag_columns(rb: int, cb: int, device) -> torch.Tensor:
     """(D, L) block column per (diagonal, lane), clipped into the plane:
     lane i on diagonal d is block (i, d-i). Lanes off the plane compute
@@ -152,47 +131,6 @@ def _from_diag(diag: torch.Tensor, rb: int, cb: int) -> torch.Tensor:
 def _blocks_to_plane(blocks: torch.Tensor, rb: int, cb: int, n: int) -> torch.Tensor:
     """(P, Rb, Cb, n, n) -> (P, Rb*n, Cb*n)."""
     return blocks.permute(0, 1, 3, 2, 4).reshape(blocks.shape[0], rb * n, cb * n)
-
-
-def _wavefront_neighbors(carry, c_arr: torch.Tensor, mid: int):
-    """Boundary-state bookkeeping shared by encode and decode loops.
-    carry: bottoms (P, L, n), rights (P, L, n), toplasts (P, L)."""
-    bottoms, rights, toplasts = carry
-    top = torch.roll(bottoms, 1, dims=1)
-    top[:, 0, :] = mid
-    topleft = torch.roll(toplasts, 1, dims=1)
-    topleft[:, 0] = mid
-    first_col = (c_arr == 0)[None, :]
-    left = torch.where(first_col[..., None], mid, rights)
-    topleft = torch.where(first_col, mid, topleft)
-    return top, left, topleft
-
-
-def _init_carry(p: int, lanes: int, n: int, mid: int, device):
-    return (
-        torch.full((p, lanes, n), mid, dtype=_I32, device=device),
-        torch.full((p, lanes, n), mid, dtype=_I32, device=device),
-        torch.full((p, lanes), mid, dtype=_I32, device=device),
-    )
-
-
-def _first_argmin(cost: torch.Tensor) -> torch.Tensor:
-    """argmin over the last axis, first index on ties (as jnp.argmin)."""
-    k = cost.shape[-1]
-    minv = cost.min(dim=-1, keepdim=True).values
-    idx = torch.arange(k, device=cost.device).expand(cost.shape)
-    return torch.where(cost == minv, idx, k).min(dim=-1).values
-
-
-@functools.lru_cache(maxsize=None)
-def _const_on(values: tuple, dtype: torch.dtype, device: str) -> torch.Tensor:
-    return torch.tensor(values, dtype=dtype).to(device)
-
-
-def _const(values: tuple, dtype: torch.dtype, device) -> torch.Tensor:
-    """A small constant index tensor on ``device``, copied there once, so
-    the encode loop never waits on a host-to-device copy."""
-    return _const_on(values, dtype, str(device))
 
 
 def _as_planes(x: torch.Tensor, dims: int):
@@ -223,7 +161,7 @@ def decode_plane(levels, modes, dc_step: int, ac_step: int, tx_types=None, *,
     if lossless:
         residuals = inverse_transform(flat, WHT_WHT, n)
     else:
-        deq = flat * _steps_mat(n, dc_step, ac_step, dev)[None]
+        deq = flat * steps_mat(n, dc_step, ac_step, dev)[None]
         # Hostile-stream guard: bound dequantized coefficients to the
         # largest magnitude a legitimate encode can produce so that
         # adversarial levels cannot wrap the inverse.
@@ -250,10 +188,10 @@ def decode_plane(levels, modes, dc_step: int, ac_step: int, tx_types=None, *,
     resid_diag = _to_diag(residuals, cc)  # (D, P, L, n, n)
     modes_diag = _to_diag(modes.to(torch.int64), cc)  # (D, P, L)
 
-    carry = _init_carry(p, rb, n, mid, dev)
+    carry = init_carry(p, rb, n, mid, dev)
     rec = []
     for d in range(cc.shape[0]):
-        top, left, topleft = _wavefront_neighbors(carry, cc[d], mid)
+        top, left, topleft = wavefront_neighbors(carry, cc[d], mid)
         preds = predict_all_modes(
             top.reshape(-1, n), left.reshape(-1, n), topleft.reshape(-1), n
         )  # (P*L, 13, n, n)
@@ -277,87 +215,43 @@ def encode_plane(src, dc_step: int, ac_step: int, *, n: int, depth: int, lossles
     src: ([P,] Rb*n, Cb*n) int32 (already padded). Returns (modes
     ([P,] Rb, Cb) int32, levels ([P,] Rb, Cb, n, n) int32, recon
     ([P,] Rb*n, Cb*n) int32, tx_types ([P,] Rb, Cb) int32 — indices into
-    TX_SET_ALL)."""
+    TX_SET_ALL). Each diagonal is one ``wavefront.encode_step``: the K2
+    kernel for a CUDA tensor, its plain version for a CPU tensor."""
+    return encode_plane_with(wavefront.encode_step, src, dc_step, ac_step, n=n, depth=depth,
+                             lossless=lossless, speed=speed, search=search)
+
+
+def encode_plane_with(step, src, dc_step: int, ac_step: int, *, n: int, depth: int,
+                      lossless: bool, speed: int = 6, search: tuple = (None, None)):
+    """``encode_plane`` with ``step`` for each diagonal:
+    ``wavefront.encode_step``, or ``wavefront.encode_step_reference`` to
+    run the plain version on any device."""
     src, squeeze = _as_planes(src, 2)
     src = src.to(_I32)
     p, hp, wp = src.shape
     dev = src.device
     rb, cb = hp // n, wp // n
-    maxv = (1 << depth) - 1
     mid = 1 << (depth - 1)
     txs = (WHT_WHT,) if lossless else tx_search_set(speed, n, search[1])
-    tx_syms = tuple(TX_SET_ALL.index(t) if t in TX_SET_ALL else 0 for t in txs)
-    n_tx = len(txs)
-    mode_set = tuple(range(N_MODES)) if lossless else mode_search_set(speed, search[0])
-    n_modes = len(mode_set)
-    steps = _steps_mat(n, dc_step, ac_step, dev)
-    bias = steps * 3 // 8  # deadzone: AC rounds with a 3/8 bias toward zero
-    bias[0, 0] = steps[0, 0] // 2  # DC keeps round-half
-    # Integer lambda for SSE (8-bit-scaled) + lam·bits cost; acs8 is the
-    # AC step in 8-bit units.
-    dshift = depth - 8
-    acs8 = ac_step >> dshift
-    lam = max(1, (acs8 * acs8 * 15) // 16000)
-    mode_idx = _const(mode_set, torch.int64, dev)
-    sym_table = _const(tx_syms, _I32, dev)
-    mode_table = _const(mode_set, _I32, dev)
+    cfg = wavefront.StepConfig(
+        n=n, depth=depth, lossless=lossless, dc_step=int(dc_step), ac_step=int(ac_step),
+        mode_set=tuple(range(N_MODES)) if lossless else mode_search_set(speed, search[0]),
+        txs=txs, tx_syms=tuple(TX_SET_ALL.index(t) if t in TX_SET_ALL else 0 for t in txs),
+    )
 
-    src_blocks = src.reshape(p, rb, n, cb, n).permute(0, 1, 3, 2, 4)  # (P,Rb,Cb,n,n)
-    cc = _diag_columns(rb, cb, dev)
-    src_diag = _to_diag(src_blocks, cc)  # (D, P, L, n, n)
-
-    carry = _init_carry(p, rb, n, mid, dev)
-    out_modes, out_lv, out_rec, out_tx = [], [], [], []
-    for d in range(cc.shape[0]):
-        sb = src_diag[d].reshape(-1, n, n)  # (P*L, n, n)
-        top, left, topleft = _wavefront_neighbors(carry, cc[d], mid)
-        preds = predict_all_modes(
-            top.reshape(-1, n), left.reshape(-1, n), topleft.reshape(-1), n
-        )  # (P*L, 13, n, n)
-        if n_modes < N_MODES:
-            preds = preds[:, mode_idx]
-        resid = sb[:, None] - preds  # (P*L, M, n, n)
-        rflat = resid.reshape(-1, n, n)
-
-        lv_c, cand_c = [], []
-        for t in txs:
-            coeffs = forward_transform(rflat, t, n)
-            if lossless:
-                lv_t = coeffs
-                deq = lv_t
-            else:
-                mag = torch.div(coeffs.abs() + bias, steps, rounding_mode="floor")
-                lv_t = coeffs.sign() * mag
-                deq = lv_t * steps
-            res_hat = inverse_transform(deq, t, n).reshape(resid.shape)
-            lv_c.append(lv_t.reshape(resid.shape))
-            cand_c.append((preds + res_hat).clamp(0, maxv))
-        lv = torch.stack(lv_c, dim=2)  # (P*L, M, T, n, n)
-        cand = torch.stack(cand_c, dim=2)
-
-        err = sb[:, None, None] - cand
-        if dshift:
-            err = err >> dshift
-        sse = (err * err).sum(dim=(-1, -2))  # (P*L, M, T)
-        bits = _rate_bits(lv)
-        cost = (sse + lam * bits).reshape(sse.shape[0], -1)  # (P*L, M*T)
-        best = _first_argmin(cost)
-
-        sel = best.reshape(-1, 1, 1, 1).expand(-1, 1, n, n)
-        best_lv = torch.gather(lv.reshape(lv.shape[0], -1, n, n), 1, sel)[:, 0]
-        best_rec = torch.gather(cand.reshape(cand.shape[0], -1, n, n), 1, sel)[:, 0]
-        best_rec = best_rec.reshape(p, rb, n, n)
-
-        carry = (best_rec[:, :, -1, :], best_rec[:, :, :, -1], top[:, :, -1])
-        out_modes.append(mode_table[best // n_tx].reshape(p, rb))
-        out_tx.append(sym_table[best % n_tx].reshape(p, rb))
-        out_lv.append(best_lv.reshape(p, rb, n, n))
-        out_rec.append(best_rec)
-
-    modes = _from_diag(torch.stack(out_modes), rb, cb)
-    levels = _from_diag(torch.stack(out_lv), rb, cb)
-    recon = _blocks_to_plane(_from_diag(torch.stack(out_rec), rb, cb), rb, cb, n)
-    tx_types = _from_diag(torch.stack(out_tx), rb, cb)
+    src_blocks = src.reshape(p, rb, n, cb, n).permute(0, 1, 3, 2, 4).contiguous()  # (P,Rb,Cb,n,n)
+    outs = (
+        torch.empty((p, rb, cb), dtype=_I32, device=dev),
+        torch.empty((p, rb, cb), dtype=_I32, device=dev),
+        torch.empty((p, rb, cb, n, n), dtype=_I32, device=dev),
+        torch.empty((p, rb, cb, n, n), dtype=_I32, device=dev),
+    )
+    # The carry is double-buffered: diagonal d reads one and writes the other.
+    carries = (init_carry(p, rb, n, mid, dev), init_carry(p, rb, n, mid, dev))
+    for d in range(rb + cb - 1):
+        step(src_blocks, carries[d % 2], carries[1 - d % 2], outs, d, cfg)
+    modes, tx_types, levels, rec_blocks = outs
+    recon = _blocks_to_plane(rec_blocks, rb, cb, n)
     if squeeze:
         return modes[0], levels[0], recon[0], tx_types[0]
     return modes, levels, recon, tx_types

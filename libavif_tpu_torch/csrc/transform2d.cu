@@ -6,15 +6,15 @@
 //     t   = round2(ck · x, s1)        (column pass)
 //     out = round2(t · rkᵀ, s2)       (row pass)
 //
-// with int32 two's-complement wraparound, as XLA's int32 einsum gives:
-// products and sums are taken in uint32, which wraps exactly as int32
-// does, and round2(v, b) = (int32)((uint32)v + 2^(b-1)) >> b.
+// with int32 two's-complement wraparound (transform.cuh holds the exact
+// integer core, which the encode step kernel shares).
 //
-// What bounds it on this card: at the main path's shapes (B = 416 blocks
-// of 16 x 16 per encode step) one launch reads and writes about 0.9 MB
-// and does 2·B·n³ ≈ 3.4 M multiply-adds — a few microseconds of HBM
-// traffic or of the CUDA cores' int32 IMAD rate, so the launch latency
-// (a few microseconds) bounds it, not bytes or operations.
+// What bounds it on this card: on the main path it runs on decode, one
+// launch per transform type per plane group (B = 1536 blocks of 16 x 16
+// for a 768x512 luma plane): one launch reads and writes about 3 MB and
+// does 2·B·n³ ≈ 12.6 M multiply-adds, about a microsecond of HBM traffic
+// or of the CUDA cores' int32 IMAD rate, so the launch latency (a few
+// microseconds) bounds it, not bytes or operations.
 //
 // What the design does about it: one launch does both passes. A CTA
 // holds one or more whole blocks plus both bases in shared memory, one
@@ -27,12 +27,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "transform.cuh"
 
-__device__ __forceinline__ int32_t round2_wrap(uint32_t acc, int bits) {
-  if (bits == 0) return (int32_t)acc;
-  return ((int32_t)(acc + (1u << (bits - 1)))) >> bits;
-}
+namespace {
 
 template <int N>
 struct Geometry {
@@ -67,18 +64,11 @@ transform2d_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ ck
   __syncthreads();
 
   const int i = e / N, j = e % N;
-  uint32_t acc = 0;
-#pragma unroll
-  for (int k = 0; k < N; ++k)
-    acc += (uint32_t)s_ck[i * N + k] * (uint32_t)s_x[local][k * N + j];
-  s_t[local][e] = round2_wrap(acc, shift1);
+  s_t[local][e] = avt::column_pass<N>(s_ck, s_x[local], i, j, shift1);
   __syncthreads();
 
-  acc = 0;
-#pragma unroll
-  for (int k = 0; k < N; ++k)
-    acc += (uint32_t)s_t[local][i * N + k] * (uint32_t)s_rkT[k * N + j];
-  if (valid) out[b * kElems + e] = round2_wrap(acc, shift2);
+  const int32_t v = avt::row_pass<N>(s_t[local], s_rkT, i, j, shift2);
+  if (valid) out[b * kElems + e] = v;
 }
 
 template <int N>

@@ -1,25 +1,18 @@
 """Host-side image file I/O: PNG / JPEG / y4m readers and writers.
 
-Shared with the JAX package by path (``libavif_tpu_torch/_shared.py``):
-``y4m``, ``png_jpeg`` and ``jpeg_gainmap`` are the reference's files
-loaded under this package's name, so ``png_jpeg``'s ``..pixels.reformat``
-is the port's reformat, which runs on ``default_device()``. This
-``__init__`` is the port's own: the reference's imports its JAX API for
-``read_image``'s AVIF branch, which here decodes with the port's
-``api.decode``.
+``y4m``, ``png_jpeg`` and ``jpeg_gainmap`` are copies of the JAX
+package's files; ``png_jpeg``'s ``..pixels.reformat`` is the port's
+reformat, which runs on ``default_device()``. ``read_image``'s AVIF
+branch decodes with the port's ``api.decode``.
 """
 
 from __future__ import annotations
 
 import pathlib
 
-from .._shared import shared_path
-
-__path__ = shared_path(__file__, "io_formats")
-
-from ..constants import AvifError, Result  # noqa: E402
-from .png_jpeg import read_png_jpeg, write_jpeg, write_png  # noqa: E402,F401
-from .y4m import read_y4m, write_y4m  # noqa: E402,F401
+from ..constants import AvifError, Result
+from .png_jpeg import read_png_jpeg, write_jpeg, write_png  # noqa: F401
+from .y4m import read_y4m, write_y4m  # noqa: F401
 
 # File format sniffing (reference: avifGuessFileFormat, avifutil.c:232)
 _MAGIC = [

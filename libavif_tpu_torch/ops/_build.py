@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``libavif_tpu_torch/csrc/`` are compiled by ``nvcc``
-for Hopper (``sm_90a``) into one shared library with a plain C
-interface, at first use, into ``libavif_tpu_torch/_build/``. The
-library's name carries a hash of the sources and flags, so an edit
-rebuilds it. It is loaded with ``ctypes``; every pointer and the stream
+for Hopper (``sm_90a``), one process per source, all started together,
+and linked into one shared library with a plain C interface, at first
+use, into ``libavif_tpu_torch/_build/``. The
+library's name carries a hash of the sources, the headers they include
+(``*.cuh``) and the flags, so an edit rebuilds it. It is loaded with ``ctypes``; every pointer and the stream
 pass as ``c_void_p``.
 
 A missing ``nvcc`` or a failed build raises: there is no fallback.
@@ -12,6 +13,7 @@ A missing ``nvcc`` or a failed build raises: there is no fallback.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -22,12 +24,14 @@ import tempfile
 import threading
 import time
 
+import torch
+
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LOCK = threading.Lock()
@@ -53,7 +57,7 @@ def _nvcc() -> str:
 
 def _library_path() -> pathlib.Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libavif_tpu_torch_kernels_{h.hexdigest()[:16]}.so"
@@ -62,24 +66,37 @@ def _library_path() -> pathlib.Path:
 def _compile(so_path: pathlib.Path) -> None:
     global build_log, build_seconds
     BUILD_DIR.mkdir(exist_ok=True)
-    # Build to a private name, then rename: another process never sees a
-    # half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, so_path)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in _sources()]
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(_sources(), objs)
+        ]
+        logs = [proc.communicate(timeout=600)[0] for proc in procs]
+        # Link to a private name, then rename: another process never sees
+        # a half-written library.
+        lib_tmp = os.path.join(tmp, so_path.name)
+        link = None
+        if all(proc.returncode == 0 for proc in procs):
+            link = subprocess.run([nvcc, "-shared", "-o", lib_tmp, *objs],
+                                  capture_output=True, text=True, timeout=600)
+            logs.append(link.stdout + link.stderr)
+        build_seconds = time.perf_counter() - t0
+        build_log = "".join(logs)
+        if link is None or link.returncode != 0:
+            raise RuntimeError(f"nvcc failed:\n{build_log}")
+        os.replace(lib_tmp, so_path)
 
 
 def load() -> ctypes.CDLL:
-    """The kernel library, built on first use. Raises if it cannot be."""
+    """The kernel library, built on first use. Raises if it cannot be.
+    Once loaded it is returned without taking the lock."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _LOCK:
         if _lib is not None:
             return _lib
@@ -93,5 +110,14 @@ def load() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p,
         ]
+        lib.avt_encode_step.restype = ctypes.c_int
+        lib.avt_encode_step.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 13
         _lib = lib
         return _lib
+
+
+def on_device(device: torch.device):
+    """A context that makes ``device`` current, or nothing when it is."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)

@@ -6,10 +6,12 @@ K1, ``transform_2d``: the batched 2-D fixed-point integer transform,
 ``round2(ck @ x[b], shift1)`` then ``round2(t[b] @ rkᵀ, shift2)`` in
 int32 with wraparound. Source: ``libavif_tpu_torch/csrc/transform2d.cu``.
 It replaces ``libavif_tpu/ops/pallas_kernels.py:_mm_round2`` and
-``transform_2d``. At the main path's shapes (416 blocks of 16 x 16 per
-encode step) a launch moves under 1 MB, so launch latency bounds it; the
-kernel keeps both passes in one launch, with the intermediate in shared
-memory (see the source for the design).
+``transform_2d``. It runs on decode, one launch per transform type per
+plane group (1536 blocks of 16 x 16 for a 768x512 luma plane), where a
+launch moves about 3 MB, so launch latency bounds it; the kernel keeps
+both passes in one launch, with the intermediate in shared memory (see
+the source for the design). On encode its integer core
+(``csrc/transform.cuh``) runs inside K2 (``ops/wavefront.py``).
 
 Every CUDA tensor goes through the kernel, or the call raises. A CPU
 tensor takes ``transform_2d_reference``, the plain version, which the CPU
@@ -87,11 +89,10 @@ def transform_2d(blocks, col_k, row_k, shift1: int, shift2: int) -> torch.Tensor
     if batch == 0:
         return out
     lib = _build.load()
-    with torch.cuda.device(blocks.device):
-        stream = torch.cuda.current_stream(blocks.device).cuda_stream
+    with _build.on_device(blocks.device):
         rc = lib.avt_transform2d(
             blocks.data_ptr(), col_k.data_ptr(), row_k.data_ptr(), out.data_ptr(),
-            batch, n, shift1, shift2, stream,
+            batch, n, shift1, shift2, torch.cuda.current_stream(blocks.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"transform_2d launch failed: CUDA error {rc}")

@@ -1,0 +1,321 @@
+"""K2, the own-format encoder's wavefront step, and its plain PyTorch version.
+
+One call encodes one anti-diagonal ``d`` of the block grid for every plane
+of a same-geometry group: lane ``r`` is block ``(r, d - r)``. For each
+lane it predicts the searched intra modes from the carried neighbours,
+and for each searched transform it runs the forward transform, the
+deadzone quantizer, the dequantizer and the inverse; it keeps the
+(mode, transform) pair of least ``SSE + lam * rate`` (first index on
+ties) and writes the winner's mode and transform symbols, levels and
+reconstruction into the ``(P, Rb, Cb, ...)`` outputs at ``(r, d - r)``,
+and the new wavefront carry into ``carry_out``.
+
+It replaces the body of the JAX package's ``lax.scan`` in
+``libavif_tpu/codec/recon.py:284-337`` (an XLA program, no Pallas), with
+K1's transform (``libavif_tpu/ops/pallas_kernels.py:84``) inside it.
+Source: ``libavif_tpu_torch/csrc/encode_step.cu``. A diagonal of 32
+16×16 luma blocks at speed 6 does about 6.8 M int32 multiply-adds in
+its transforms, so the card's integer rate bounds it; one launch per
+diagonal replaces about 290 small PyTorch launches of the plain version.
+
+A CUDA tensor launches the kernel, or the call raises. A CPU tensor takes
+``encode_step_reference``, the plain version, which the CPU tests hold
+against the JAX package. ``encode_step.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from .. import tables
+from . import _build
+from .intra import N_MODES, predict_all_modes
+from .transforms import WHT_WHT, forward_transform, inverse_transform
+
+_I32 = torch.int32
+TX_SIZES = (4, 8, 16, 32)
+MAX_TX = 5
+
+
+@dataclasses.dataclass(frozen=True)
+class StepConfig:
+    """What one encode step needs besides its tensors."""
+
+    n: int
+    depth: int
+    lossless: bool
+    dc_step: int
+    ac_step: int
+    mode_set: tuple  # searched intra modes, in search order
+    txs: tuple  # searched transform types, in search order
+    tx_syms: tuple  # bitstream symbol of each searched transform
+
+    @property
+    def predicted_modes(self) -> tuple:
+        """The mode each search index predicts with. A search of all 13
+        modes predicts in MODE_SET order whatever ``mode_set``'s order, as
+        the JAX package's step does (it reorders the predictions only for
+        a narrower search), while the symbol coded is ``mode_set[k]``."""
+        return tuple(range(N_MODES)) if len(self.mode_set) == N_MODES else self.mode_set
+
+    @property
+    def lam(self) -> int:
+        """Integer lambda for SSE (8-bit-scaled) + lam·bits; acs8 is the AC
+        step in 8-bit units."""
+        acs8 = self.ac_step >> (self.depth - 8)
+        return max(1, (acs8 * acs8 * 15) // 16000)
+
+
+def wavefront_neighbors(carry, c_arr: torch.Tensor, mid: int):
+    """Boundary-state bookkeeping shared by encode and decode loops.
+    carry: bottoms (P, L, n), rights (P, L, n), toplasts (P, L)."""
+    bottoms, rights, toplasts = carry
+    top = torch.roll(bottoms, 1, dims=1)
+    top[:, 0, :] = mid
+    topleft = torch.roll(toplasts, 1, dims=1)
+    topleft[:, 0] = mid
+    first_col = (c_arr == 0)[None, :]
+    left = torch.where(first_col[..., None], mid, rights)
+    topleft = torch.where(first_col, mid, topleft)
+    return top, left, topleft
+
+
+def init_carry(p: int, lanes: int, n: int, mid: int, device):
+    return (
+        torch.full((p, lanes, n), mid, dtype=_I32, device=device),
+        torch.full((p, lanes, n), mid, dtype=_I32, device=device),
+        torch.full((p, lanes), mid, dtype=_I32, device=device),
+    )
+
+
+def _bitlength(a: torch.Tensor, maxbits: int = 16) -> torch.Tensor:
+    """Integer bit length of |a| (exact, no float): sum of threshold tests."""
+    bits = torch.zeros_like(a)
+    for k in range(maxbits):
+        bits += (a >= (1 << k)).to(a.dtype)
+    return bits
+
+
+def _rate_bits(levels: torch.Tensor) -> torch.Tensor:
+    """Integer rate proxy (bits) per block: 3 + 2·bitlen per nonzero
+    coefficient, summed over the last two axes."""
+    a = levels.abs()
+    per = torch.where(a > 0, 3 + 2 * _bitlength(a), 0)
+    return per.sum(dim=(-1, -2))
+
+
+def first_argmin(cost: torch.Tensor) -> torch.Tensor:
+    """argmin over the last axis, first index on ties (as jnp.argmin)."""
+    k = cost.shape[-1]
+    minv = cost.min(dim=-1, keepdim=True).values
+    idx = torch.arange(k, device=cost.device).expand(cost.shape)
+    return torch.where(cost == minv, idx, k).min(dim=-1).values
+
+
+@functools.lru_cache(maxsize=None)
+def _const_on(values: tuple, dtype: torch.dtype, device: str) -> torch.Tensor:
+    return torch.tensor(values, dtype=dtype).to(device)
+
+
+def const(values: tuple, dtype: torch.dtype, device) -> torch.Tensor:
+    """A small constant index tensor on ``device``, copied there once, so
+    the encode loop never waits on a host-to-device copy."""
+    return _const_on(values, dtype, str(device))
+
+
+def steps_mat(n: int, dc_step: int, ac_step: int, device) -> torch.Tensor:
+    """(n, n) quantizer steps: ``dc_step`` at (0, 0), ``ac_step`` elsewhere."""
+    steps = torch.full((n, n), ac_step, dtype=_I32, device=device)
+    steps[0, 0] = dc_step
+    return steps
+
+
+def _check(src_blocks, carry_in, carry_out, outs, d: int, cfg: StepConfig):
+    if cfg.n not in TX_SIZES:
+        raise ValueError(f"encode_step: block size {cfg.n} not in {TX_SIZES}")
+    if src_blocks.dim() != 5 or src_blocks.shape[-2:] != (cfg.n, cfg.n):
+        raise ValueError(f"encode_step: src_blocks must be (P, Rb, Cb, {cfg.n}, {cfg.n}), "
+                         f"got {tuple(src_blocks.shape)}")
+    p, rb, cb = src_blocks.shape[:3]
+    n = cfg.n
+    named = [("carry_in", carry_in, ((p, rb, n), (p, rb, n), (p, rb))),
+             ("carry_out", carry_out, ((p, rb, n), (p, rb, n), (p, rb))),
+             ("outs", outs, ((p, rb, cb), (p, rb, cb), (p, rb, cb, n, n), (p, rb, cb, n, n)))]
+    for name, group, shapes in named:
+        got = tuple(tuple(t.shape) for t in group)
+        if got != shapes:
+            raise ValueError(f"encode_step: {name} must be shaped {shapes}, got {got}")
+    tensors = [src_blocks, *carry_in, *carry_out, *outs]
+    if any(t.dtype != _I32 for t in tensors):
+        raise TypeError("encode_step takes int32 tensors")
+    if any(t.device != src_blocks.device for t in tensors):
+        raise ValueError("encode_step: every tensor must be on one device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("encode_step takes contiguous tensors")
+    if src_blocks.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"encode_step runs on cuda or cpu, not {src_blocks.device}")
+    if not 0 <= d < rb + cb - 1:
+        raise ValueError(f"encode_step: diagonal {d} outside 0..{rb + cb - 2}")
+    if not (1 <= len(cfg.mode_set) <= N_MODES and 1 <= len(cfg.txs) <= MAX_TX
+            and len(cfg.tx_syms) == len(cfg.txs)):
+        raise ValueError("encode_step: mode or transform search set out of range")
+    if cfg.lossless != (cfg.txs == (WHT_WHT,)):
+        raise ValueError("encode_step: lossless searches exactly the Walsh-Hadamard transform")
+
+
+def encode_step_reference(src_blocks, carry_in, carry_out, outs, d: int, cfg: StepConfig) -> None:
+    """Plain PyTorch version of K2: the loop body of the wavefront encoder
+    on every lane of diagonal ``d`` (lanes off the plane compute on
+    clipped columns, and only their carry is kept)."""
+    n = cfg.n
+    p, rb, cb = src_blocks.shape[:3]
+    dev = src_blocks.device
+    maxv = (1 << cfg.depth) - 1
+    mid = 1 << (cfg.depth - 1)
+    dshift = cfg.depth - 8
+    n_tx = len(cfg.txs)
+    steps = steps_mat(n, cfg.dc_step, cfg.ac_step, dev)
+    bias = steps * 3 // 8  # deadzone: AC rounds with a 3/8 bias toward zero
+    bias[0, 0] = steps[0, 0] // 2  # DC keeps round-half
+    lam = cfg.lam
+    mode_idx = const(cfg.mode_set, torch.int64, dev)
+    sym_table = const(cfg.tx_syms, _I32, dev)
+    mode_table = const(cfg.mode_set, _I32, dev)
+    lanes = torch.arange(rb, device=dev)
+    c_arr = (d - lanes).clamp(0, cb - 1)
+
+    sb = src_blocks[:, lanes, c_arr].reshape(-1, n, n)  # (P*L, n, n)
+    top, left, topleft = wavefront_neighbors(carry_in, c_arr, mid)
+    preds = predict_all_modes(
+        top.reshape(-1, n), left.reshape(-1, n), topleft.reshape(-1), n
+    )  # (P*L, 13, n, n)
+    if len(cfg.mode_set) < N_MODES:
+        preds = preds[:, mode_idx]
+    resid = sb[:, None] - preds  # (P*L, M, n, n)
+    rflat = resid.reshape(-1, n, n)
+
+    lv_c, cand_c = [], []
+    for t in cfg.txs:
+        coeffs = forward_transform(rflat, t, n)
+        if cfg.lossless:
+            lv_t = coeffs
+            deq = lv_t
+        else:
+            mag = torch.div(coeffs.abs() + bias, steps, rounding_mode="floor")
+            lv_t = coeffs.sign() * mag
+            deq = lv_t * steps
+        res_hat = inverse_transform(deq, t, n).reshape(resid.shape)
+        lv_c.append(lv_t.reshape(resid.shape))
+        cand_c.append((preds + res_hat).clamp(0, maxv))
+    lv = torch.stack(lv_c, dim=2)  # (P*L, M, T, n, n)
+    cand = torch.stack(cand_c, dim=2)
+
+    err = sb[:, None, None] - cand
+    if dshift:
+        err = err >> dshift
+    sse = (err * err).sum(dim=(-1, -2))  # (P*L, M, T)
+    bits = _rate_bits(lv)
+    cost = (sse + lam * bits).reshape(sse.shape[0], -1)  # (P*L, M*T)
+    best = first_argmin(cost)
+
+    sel = best.reshape(-1, 1, 1, 1).expand(-1, 1, n, n)
+    best_lv = torch.gather(lv.reshape(lv.shape[0], -1, n, n), 1, sel)[:, 0]
+    best_rec = torch.gather(cand.reshape(cand.shape[0], -1, n, n), 1, sel)[:, 0]
+    best_rec = best_rec.reshape(p, rb, n, n)
+
+    for buf, value in zip(carry_out, (best_rec[:, :, -1, :], best_rec[:, :, :, -1], top[:, :, -1])):
+        buf.copy_(value)
+    on = (lanes <= d) & (d - lanes < cb)
+    r_on, c_on = lanes[on], d - lanes[on]
+    modes, txs, levels, recon = outs
+    modes[:, r_on, c_on] = mode_table[best // n_tx].reshape(p, rb)[:, on]
+    txs[:, r_on, c_on] = sym_table[best % n_tx].reshape(p, rb)[:, on]
+    levels[:, r_on, c_on] = best_lv.reshape(p, rb, n, n)[:, on]
+    recon[:, r_on, c_on] = best_rec[:, on]
+
+
+# ------------------------------------------------------------------ the kernel
+
+
+@functools.lru_cache(maxsize=None)
+def _tables_on(n: int, txs: tuple, device: str) -> torch.Tensor:
+    """One int32 buffer on ``device``: for each searched transform its
+    forward (ck, rk) and inverse (ck, rk) bases, each (n, n) and laid out
+    as K1 takes them; then for modes D45..D203 the directional
+    (use_top, idx, frac) tables; then the smooth weights."""
+    parts = []
+    for t in txs:
+        if t == WHT_WHT:
+            h = tables._hadamard(n)
+            parts += [h, h, h.T, h.T]
+        else:
+            fck, frk = tables.kernels(t, n, inverse=False)
+            ick, irk = tables.kernels(t, n, inverse=True)
+            parts += [fck, frk, ick.T, irk.T]
+    for mode in sorted(tables.DIR_ANGLES):
+        parts += [np.asarray(a, np.int64) for a in tables.dir_tables(mode, n)]
+    parts.append(tables.smooth_weights(n))
+    flat = np.concatenate([np.asarray(a, np.int64).reshape(-1) for a in parts]).astype(np.int32)
+    return torch.from_numpy(flat).to(device)
+
+
+class _StepParams(ctypes.Structure):
+    """Mirror of ``StepParams`` in ``csrc/encode_step.cu``."""
+
+    _fields_ = [
+        ("p", ctypes.c_int), ("rb", ctypes.c_int), ("cb", ctypes.c_int),
+        ("n", ctypes.c_int), ("depth", ctypes.c_int), ("lossless", ctypes.c_int),
+        ("dc_step", ctypes.c_int), ("ac_step", ctypes.c_int), ("lam", ctypes.c_int),
+        ("n_modes", ctypes.c_int), ("n_tx", ctypes.c_int),
+        ("modes", ctypes.c_int * N_MODES), ("pred_modes", ctypes.c_int * N_MODES),
+        ("tx_syms", ctypes.c_int * MAX_TX),
+    ]
+
+
+@functools.lru_cache(maxsize=None)
+def _params(cfg: StepConfig, p: int, rb: int, cb: int) -> _StepParams:
+    """The launch's constant parameters (read, never written, per call)."""
+    s = _StepParams(p, rb, cb, cfg.n, cfg.depth, int(cfg.lossless), cfg.dc_step, cfg.ac_step,
+                    cfg.lam, len(cfg.mode_set), len(cfg.txs))
+    s.modes[: len(cfg.mode_set)] = cfg.mode_set
+    s.pred_modes[: len(cfg.mode_set)] = cfg.predicted_modes
+    s.tx_syms[: len(cfg.txs)] = cfg.tx_syms
+    return s
+
+
+def encode_step(src_blocks, carry_in, carry_out, outs, d: int, cfg: StepConfig) -> None:
+    """K2 wrapper: encode diagonal ``d`` of every plane in ``src_blocks``
+    ((P, Rb, Cb, n, n) int32), reading the carry (bottoms (P, Rb, n),
+    rights (P, Rb, n), toplasts (P, Rb)) from ``carry_in`` and writing it
+    to ``carry_out``; ``outs`` = (modes (P, Rb, Cb), tx_types (P, Rb, Cb),
+    levels and recon (P, Rb, Cb, n, n)), written at the diagonal's
+    blocks. CUDA tensors launch the kernel on the current stream; CPU
+    tensors take the plain version."""
+    _check(src_blocks, carry_in, carry_out, outs, d, cfg)
+    if src_blocks.device.type == "cpu":
+        encode_step_reference(src_blocks, carry_in, carry_out, outs, d, cfg)
+        return
+    p, rb, cb = src_blocks.shape[:3]
+    if p == 0:
+        return
+    dev = src_blocks.device
+    table = _tables_on(cfg.n, cfg.txs, str(dev))
+    params = _params(cfg, p, rb, cb)
+    lib = _build.load()
+    with _build.on_device(dev):
+        rc = lib.avt_encode_step(
+            ctypes.byref(params), d, src_blocks.data_ptr(),
+            *(t.data_ptr() for t in carry_in), *(t.data_ptr() for t in carry_out),
+            *(t.data_ptr() for t in outs), table.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"encode_step launch failed: CUDA error {rc}")
+    encode_step.launches += 1
+
+
+encode_step.launches = 0

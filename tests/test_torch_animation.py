@@ -29,7 +29,8 @@ from libavif_tpu_torch import api
 from libavif_tpu_torch.codec import frame
 from libavif_tpu_torch.codec.av1 import rdsearch_device as rdd
 from libavif_tpu_torch.codec.av1.stream import StreamDecoder
-from test_torch_encoder import assert_same_image, encoders, make_image
+from test_torch_classes import fields, to_port
+from test_torch_encoder import PortEncoder, assert_same_image, encoders, make_image
 
 
 def _frames(n=3, w=64, h=48, depth=8, fmt=PixelFormat.YUV420, alpha=False, seed=0):
@@ -58,11 +59,11 @@ def _y_psnr(img, src):
 )
 def test_encode_sequence_frames_matches_jax(frames, params):
     before = rdd.dispatch_plan_costs.runs.copy()
-    ours = frame.encode_sequence_frames(frames, frame.FrameParams(**params), "cpu")
+    ours = frame.encode_sequence_frames(to_port(frames), frame.FrameParams(**params), "cpu")
     assert rdd.dispatch_plan_costs.runs == before
     ref = jframe.encode_sequence_frames(frames, jframe.FrameParams(**params))
     assert [p for p, _ in ours] == [p for p, _ in ref]
-    assert [h for _, h in ours] == [h for _, h in ref]
+    assert [fields(h) for _, h in ours] == [fields(h) for _, h in ref]
     # a spec GOP decodes in order against one stream's references
     stream, jax_stream = StreamDecoder(), JaxStreamDecoder()
     for (payload, _), src in zip(ours, frames):
@@ -136,7 +137,7 @@ def test_animation_bytes_and_decode_match_jax(name):
 def test_inter_coded_track_really_is_inter():
     """The default animation's samples after the first are inter frames
     (not sync samples), so read_all has references to keep."""
-    data = _animation(api.Encoder(device="cpu"), _frames())
+    data = _animation(PortEncoder(device="cpu"), _frames())
     track = parse_container(data).tracks[0]
     assert [track.sample_table.is_sync_sample(k) for k in range(3)] == [True, False, False]
     sizes = track.sample_table.sample_sizes
@@ -156,7 +157,7 @@ def test_rd_program_runs_once_per_frame_on_the_encoders_device(monkeypatch):
 
     monkeypatch.setattr(rdd, "materialize_plan_costs", probe)
     before = rdd.dispatch_plan_costs.runs.copy()
-    data = _animation(api.Encoder(device="cpu"), _frames(5), flags=[0, 0, 0, 1, 0])  # GOPs of 3 and 2
+    data = _animation(PortEncoder(device="cpu"), _frames(5), flags=[0, 0, 0, 1, 0])  # GOPs of 3 and 2
     assert rdd.dispatch_plan_costs.runs - before == {"cpu": 5}
     assert len(used) == 5 and all(h.used for h in used)
     assert api.Decoder(device="cpu").read(data).width == 64
@@ -170,9 +171,9 @@ def test_rd_program_failure_raises(monkeypatch):
 
     monkeypatch.setattr(rdd.PlanCostsHandle, "flat", broken)
     with pytest.raises(RuntimeError, match="RD pre-pass tables were not read"):
-        frame.encode_sequence_frames(_frames(), frame.FrameParams(quality=60), "cpu")
+        frame.encode_sequence_frames(to_port(_frames()), frame.FrameParams(quality=60), "cpu")
     with pytest.raises(RuntimeError, match="RD pre-pass tables were not read"):
-        _animation(api.Encoder(device="cpu"), _frames())
+        _animation(PortEncoder(device="cpu"), _frames())
 
 
 def test_held_device_serves_only_its_frames(monkeypatch):
@@ -195,7 +196,7 @@ def test_rd_program_on_matches_jax_operating_point(monkeypatch):
     frames = _frames(3, 128, 96)
     params = dict(quality=60, speed=6)
     before = rdd.dispatch_plan_costs.runs["cpu"]
-    ours = frame.encode_sequence_frames(frames, frame.FrameParams(**params), "cpu")
+    ours = frame.encode_sequence_frames(to_port(frames), frame.FrameParams(**params), "cpu")
     assert rdd.dispatch_plan_costs.runs["cpu"] == before + 3
     ref = jframe.encode_sequence_frames(frames, jframe.FrameParams(**params))
     size = sum(len(p) for p, _ in ours)

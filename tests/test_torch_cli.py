@@ -11,6 +11,7 @@ carries YUV as it is.
 """
 
 import importlib
+import pathlib
 
 import numpy as np
 import pytest
@@ -168,6 +169,9 @@ def test_gainmaputil_matches_jax(tmp_path, inputs, gain_map_avif, capsys, argv, 
 def test_cli_modules_are_the_reference_files_on_the_port():
     import libavif_tpu_torch.cli.gainmaputil as gmu
 
-    assert gmu.__file__.endswith("libavif_tpu/cli/gainmaputil.py")
+    # the port's own copy of the reference's file, loaded under the port's name
+    port = pathlib.Path(gmu.__file__)
+    assert port.parts[-3:] == ("libavif_tpu_torch", "cli", "gainmaputil.py")
+    assert port.read_text() == (port.parents[2] / "libavif_tpu" / "cli" / "gainmaputil.py").read_text()
     assert gmu.__name__ == "libavif_tpu_torch.cli.gainmaputil"
     assert gmu.__package__ == "libavif_tpu_torch.cli"

@@ -1,5 +1,5 @@
-"""Tests that need an NVIDIA GPU: K1, the own-format path, the spec
-path's RD pre-pass, the pixel pipeline and animations on the card, each
+"""Tests that need an NVIDIA GPU: K1, K2 (the encode wavefront step), the
+own-format path, the spec path's RD pre-pass, the pixel pipeline and animations on the card, each
 held against the port's own plain PyTorch path on the CPU.
 
 They skip where ``torch.cuda.is_available()`` is false. This file imports
@@ -15,12 +15,12 @@ import numpy as np
 import pytest
 import torch
 
-from libavif_tpu.constants import ChromaUpsampling, MatrixCoefficients, PixelFormat, Range
-from libavif_tpu.image import Image
 from libavif_tpu_torch import api, io_formats, tables
 from libavif_tpu_torch.codec import recon
 from libavif_tpu_torch.codec.av1 import rdsearch_device
-from libavif_tpu_torch.ops import cuda_kernels
+from libavif_tpu_torch.constants import ChromaUpsampling, MatrixCoefficients, PixelFormat, Range
+from libavif_tpu_torch.image import Image
+from libavif_tpu_torch.ops import cuda_kernels, wavefront
 from libavif_tpu_torch.pixels import reformat
 
 _CASES = [
@@ -74,6 +74,48 @@ def test_encode_and_decode_plane_on_card_equal_cpu(cuda, depth, lossless, speed,
     assert torch.equal(dec.cpu(), on_cpu[2])
 
 
+# (depth, lossless, speed, n, (h, w), search): tests/test_torch_encode_step.py's
+# configurations, which the CPU holds against the JAX package.
+_STEP_CONFIGS = [
+    (8, False, 6, 16, (48, 64), (None, None)),
+    (8, False, 0, 16, (37, 45), (None, None)),
+    (10, False, 0, 8, (40, 24), (None, None)),
+    (12, False, 9, 16, (33, 50), (None, None)),
+    (8, False, 9, 8, (40, 56), (None, None)),
+    (12, True, 6, 8, (24, 40), (None, None)),
+    (8, True, 6, 16, (35, 21), (None, None)),
+    (10, False, 3, 16, (32, 48), (5, 3)),
+    (8, False, 6, 4, (20, 28), (None, None)),
+    (10, False, 0, 4, (17, 22), (None, None)),
+    (8, True, 6, 4, (12, 16), (None, None)),
+    (8, False, 0, 32, (64, 96), (None, None)),
+    (12, False, 6, 32, (40, 70), (None, None)),
+    (10, True, 6, 32, (64, 64), (None, None)),
+    (8, False, 0, 16, (32, 48), (13, 5)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth,lossless,speed,n,shape,search", _STEP_CONFIGS)
+def test_encode_step_kernel_matches_plain_version(cuda, depth, lossless, speed, n, shape, search):
+    rng = np.random.default_rng(depth * 31 + n)
+    maxv = (1 << depth) - 1
+    yy, xx = np.mgrid[0:shape[0], 0:shape[1]]
+    planes = [np.clip((yy * 7 + xx * 3 + 5 * k) * (maxv // 255) + rng.integers(0, (maxv + 1) // 8, shape),
+                      0, maxv) for k in range(2)]
+    src = torch.from_numpy(np.stack([recon.pad_to_blocks(p, n) for p in planes]).astype(np.int32))
+    dc, ac = (1, 1) if lossless else tables.step_sizes(150, depth)
+    kw = dict(n=n, depth=depth, lossless=lossless, speed=speed, search=search)
+    plain = recon.encode_plane_with(wavefront.encode_step_reference, src.to(cuda), dc, ac, **kw)
+    before = wavefront.encode_step.launches
+    kernel = recon.encode_plane(src.to(cuda), dc, ac, **kw)
+    torch.cuda.synchronize()
+    rb, cb = src.shape[1] // n, src.shape[2] // n
+    assert wavefront.encode_step.launches - before == rb + cb - 1  # one per diagonal
+    for name, a, b in zip(("modes", "levels", "recon", "tx_types"), kernel, plain):
+        assert torch.equal(a, b), name
+
+
 @pytest.mark.cuda
 def test_encode_batch_bytes_on_card_equal_cpu(cuda):
     img = Image(80, 48, 8, PixelFormat.YUV420)
@@ -81,9 +123,11 @@ def test_encode_batch_bytes_on_card_equal_cpu(cuda):
     rng = np.random.default_rng(0)
     for p in img.yuv_planes:
         p[:] = rng.integers(0, 256, p.shape).astype(np.uint8)
-    before = cuda_kernels.transform_2d.launches
+    before = (wavefront.encode_step.launches, cuda_kernels.transform_2d.launches)
     on_card = api.encode_batch([img], quality=75, speed=6, codec="native", device=cuda)
-    assert cuda_kernels.transform_2d.launches > before
+    # K2 on every diagonal of luma (3 + 5 - 1) and chroma (2 + 3 - 1); no K1 on encode
+    assert (wavefront.encode_step.launches - before[0], cuda_kernels.transform_2d.launches) == (
+        7 + 4, before[1])
     assert on_card == api.encode_batch([img], quality=75, speed=6, codec="native", device="cpu")
     a = api.decode(on_card[0], device=cuda)
     b = api.decode(on_card[0], device="cpu")
@@ -212,9 +256,10 @@ def _animate(frames, dev, **settings):
 @pytest.mark.cuda
 def test_own_format_animation_on_card_equal_cpu(cuda):
     frames = _pan(4, 96, 64)
-    before = cuda_kernels.transform_2d.launches
+    before = (wavefront.encode_step.launches, cuda_kernels.transform_2d.launches)
     on_card = _animate(frames, cuda, codec_choice="native", quality=75)
-    assert cuda_kernels.transform_2d.launches > before
+    assert wavefront.encode_step.launches > before[0]
+    assert cuda_kernels.transform_2d.launches == before[1]
     assert on_card == _animate(frames, "cpu", codec_choice="native", quality=75)
     decoded = []
     for dev in (cuda, "cpu"):

@@ -10,6 +10,7 @@ from libavif_tpu.constants import PixelFormat
 from libavif_tpu.image import Image
 from libavif_tpu_torch import api
 from libavif_tpu_torch.codec import frame
+from test_torch_classes import to_port
 
 
 def _image(seed, w=64, h=48, depth=8, fmt=PixelFormat.YUV420):
@@ -49,7 +50,7 @@ def test_encode_batch_bytes_and_decode_match_jax(quality):
     imgs = [_image(1), _image(2)]
     imgs[1].exif = b"II*\x00" + bytes(range(16))
     imgs[1].xmp = b"<x:xmpmeta xmlns:x='adobe:ns:meta/'/>"
-    ours = api.encode_batch(imgs, quality=quality, speed=6, codec="native", device="cpu")
+    ours = api.encode_batch(to_port(imgs), quality=quality, speed=6, codec="native", device="cpu")
     ref = japi.encode_batch(imgs, quality=quality, speed=6, codec="native")
     assert ours == ref
     for data in ours:
@@ -63,7 +64,7 @@ def test_encode_batch_bytes_and_decode_match_jax(quality):
 def test_other_formats_match_jax(depth, fmt, quality):
     # quality 40 turns the deblocking filter on as well as CDEF
     imgs = [_image(3, 40, 30, depth, fmt)]
-    ours = api.encode_batch(imgs, quality=quality, speed=6, codec="native", device="cpu")
+    ours = api.encode_batch(to_port(imgs), quality=quality, speed=6, codec="native", device="cpu")
     assert ours == japi.encode_batch(imgs, quality=quality, speed=6, codec="native")
     _assert_same_image(api.decode(ours[0], device="cpu"), japi.decode(ours[0]))
 
@@ -80,7 +81,7 @@ def test_frame_layer_matches_jax(settings):
     imgs = [_image(4, 48, 32), _image(5, 48, 32)]
     params = frame.FrameParams(codec="native", **settings)
     jparams = jframe.FrameParams(codec="native", **settings)
-    ours = frame.encode_frames_pipelined(imgs, params, "cpu")
+    ours = frame.encode_frames_pipelined(to_port(imgs), params, "cpu")
     ref = jframe.encode_frames_pipelined(imgs, jparams)
     assert [o for o, _ in ours] == [r for r, _ in ref]
     streams = [o for o, _ in ours]

@@ -23,6 +23,7 @@ from libavif_tpu_torch import io_formats as tio
 from libavif_tpu_torch.hdr import gainmap as tgm
 from libavif_tpu_torch.pixels import reformat as treformat
 from test_gainmap import make_sdr_hdr_pair
+from test_torch_classes import to_port
 from test_torch_reformat import assert_close_planes
 
 
@@ -92,7 +93,7 @@ def test_y4m_round_trips_between_packages(tmp_path, fmt, depth):
         if p is not None:
             p[:] = rng.integers(0, 1 << depth, p.shape)
     jio.write_y4m(tmp_path / "a.y4m", img)
-    tio.write_y4m(tmp_path / "b.y4m", img)
+    tio.write_y4m(tmp_path / "b.y4m", to_port(img))
     assert (tmp_path / "a.y4m").read_bytes() == (tmp_path / "b.y4m").read_bytes()
     back = tio.read_image(tmp_path / "a.y4m")
     for g, w in zip(back.yuv_planes, img.yuv_planes):
@@ -122,22 +123,22 @@ def _decoded(seed, depth, fmt, alpha):
 )
 def test_write_png_matches_jax(tmp_path, depth, fmt, alpha, out_depth):
     img = _decoded(depth, depth, fmt, alpha)
-    tio.write_png(tmp_path / "port.png", img, out_depth)
+    tio.write_png(tmp_path / "port.png", to_port(img), out_depth)
     jio.write_png(tmp_path / "jax.png", img, out_depth)
     if depth == 8 or out_depth == 8:
         got = np.asarray(PILImage.open(tmp_path / "port.png"))
         want = np.asarray(PILImage.open(tmp_path / "jax.png"))
         assert got.shape == (23, 37, 4 if alpha else 3)
     else:  # 16-bit PNG: compare the converted samples the writer saw
-        got = tio.png_jpeg._to_rgb_array(img, 16)
+        got = tio.png_jpeg._to_rgb_array(to_port(img), 16)
         want = jpng._to_rgb_array(img, 16)
     assert_close_planes(got, want)
 
 
 def test_write_jpeg_matches_jax(tmp_path):
     img = _decoded(5, 8, PixelFormat.YUV420, False)
-    np.testing.assert_array_equal(tio.png_jpeg._to_rgb_array(img, 8), jpng._to_rgb_array(img, 8))
-    tio.write_jpeg(tmp_path / "port.jpg", img)
+    np.testing.assert_array_equal(tio.png_jpeg._to_rgb_array(to_port(img), 8), jpng._to_rgb_array(img, 8))
+    tio.write_jpeg(tmp_path / "port.jpg", to_port(img))
     jio.write_jpeg(tmp_path / "jax.jpg", img)
     assert (tmp_path / "port.jpg").read_bytes() == (tmp_path / "jax.jpg").read_bytes()
 
@@ -177,14 +178,14 @@ def test_png_round_trip_runs_the_ports_reformat(tmp_path):
 def test_gain_map_compute_and_apply_match_jax(gm_format):
     """After tests/test_gainmap.py::test_compute_then_apply_recovers_alternate."""
     base, alt = make_sdr_hdr_pair()
-    got = tgm.compute_gain_map(base, alt, gain_map_format=gm_format)
+    got = tgm.compute_gain_map(to_port(base), to_port(alt), gain_map_format=gm_format)
     want = jgm.compute_gain_map(base, alt, gain_map_format=gm_format)
     assert tgm.same_metadata(got.metadata, want.metadata)
     for g, w in zip(got.image.yuv_planes, want.image.yuv_planes):
         assert_close_planes(g, w, "gain map")
     headroom = float(want.metadata.alternate_hdr_headroom)
     for weight in (headroom, headroom / 2, 0.0):
-        toned = tgm.apply_gain_map(base, got, hdr_headroom=weight,
+        toned = tgm.apply_gain_map(to_port(base), got, hdr_headroom=weight,
                                    output_transfer_characteristics=alt.transfer_characteristics)
         expect = jgm.apply_gain_map(base, want, hdr_headroom=weight,
                                     output_transfer_characteristics=alt.transfer_characteristics)

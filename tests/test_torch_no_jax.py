@@ -1,45 +1,46 @@
-"""The port runs where jax is absent: no module of libavif_tpu_torch, and
-nothing it imports, attempts to import jax.
+"""The port is self-contained: no module of libavif_tpu_torch, and nothing
+it imports, attempts to import jax or any module of the JAX package.
 
-A subprocess blocks jax (``sys.modules["jax"] = None``, so any import of
-it raises) and records every attempt with the module that made it. The
-only attempt allowed is the shared ``libavif_tpu/__init__.py``'s own
-guarded probe, which tolerates a missing jax. The subprocess then runs,
-through the port, an own-format 32×32 encode and decode, a spec-AV1
-encode with an alpha plane and the RD pre-pass on, and its decode; then
-PNG -> AVIF -> PNG (write a PNG, read it, encode, decode, write the PNG
-back) and a gain-map compute; then, through ``Encoder`` and ``Decoder``,
-a 3-frame inter-coded animation (``next_image`` and ``read_all``), a
-grid and a 16-bit ``sato`` still; and last ``python -m
-libavif_tpu_torch.cli.avifenc``, ``avifdec`` and ``gainmaputil`` (as
-``runpy`` runs them).
+A subprocess blocks both (``sys.modules["jax"] = None`` and
+``sys.modules["libavif_tpu"] = None``, so any import of either raises)
+and records every attempt with the module that made it; none is allowed.
+The subprocess then runs, through the port, an own-format 32×32 encode
+and decode, a spec-AV1 encode with an alpha plane and the RD pre-pass
+on, and its decode; then PNG -> AVIF -> PNG (write a PNG, read it,
+encode, decode, write the PNG back) and a gain-map compute; then,
+through ``Encoder`` and ``Decoder``, a 3-frame inter-coded animation
+(``next_image`` and ``read_all``), a grid and a 16-bit ``sato`` still;
+then ``python -m libavif_tpu_torch.cli.avifenc``, ``avifdec`` and
+``gainmaputil`` (as ``runpy`` runs them); and last it imports every
+module of the port and reports where each was loaded from.
 
-Shared host code is the JAX package's, loaded by path under the port's
-name (``libavif_tpu_torch/_shared.py``): ``codec/av1``, ``pixels``,
-``io_formats`` and ``hdr``. The modules those files reach outside their
-directory are aliases of the JAX package's; the port's own modules
-(``rdsearch_device``, ``reformat``, ``colr``, ``api.encoder``,
-``api.decoder``) shadow the reference's.
+The JAX package's host code that imports no jax is copied into the port
+at the same relative paths (``COPIED``); each copy equals its reference
+except for import lines and the fixes listed in ``FIXES``.
 """
 
 import json
 import pathlib
+import re
 import subprocess
 import sys
 
 import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
+PORT = REPO / "libavif_tpu_torch"
+REFERENCE = REPO / "libavif_tpu"
 
 _SCRIPT = r"""
 import builtins, json, sys
 sys.modules["jax"] = None
+sys.modules["libavif_tpu"] = None
 attempts = []
 _real_import = builtins.__import__
 
 def _recording_import(name, globals=None, locals=None, fromlist=(), level=0):
-    if name == "jax" or name.startswith("jax."):
-        attempts.append((globals or {}).get("__name__", "?"))
+    if level == 0 and name.split(".")[0] in ("jax", "libavif_tpu"):
+        attempts.append([name, (globals or {}).get("__name__", "?")])
     return _real_import(name, globals, locals, fromlist, level)
 
 builtins.__import__ = _recording_import
@@ -49,8 +50,8 @@ import libavif_tpu_torch
 from libavif_tpu_torch.api import decode, encode_batch
 from libavif_tpu_torch.codec.av1 import rdsearch_device
 from libavif_tpu_torch.ops import cuda_kernels, _build
-from libavif_tpu.constants import PixelFormat
-from libavif_tpu.image import Image
+from libavif_tpu_torch.constants import PixelFormat
+from libavif_tpu_torch.image import Image
 
 img = Image(32, 32, 8, PixelFormat.YUV420)
 img.allocate_planes("yuv")
@@ -67,7 +68,6 @@ spec_out = decode(spec, device="cpu")
 rd_runs = rdsearch_device.dispatch_plan_costs.runs["cpu"]
 
 from PIL import Image as PILImage
-import libavif_tpu.image
 from libavif_tpu_torch import io_formats
 from libavif_tpu_torch.hdr import gainmap
 from libavif_tpu_torch.pixels import reformat
@@ -127,7 +127,14 @@ for argv in (["avifenc", "in.png", "cli.avif", "-q", "70"], ["avifdec", "cli.avi
         runpy.run_module(f"libavif_tpu_torch.cli.{argv[0]}", run_name="__main__")
     except SystemExit as e:
         cli_rcs.append(e.code)
+import importlib, pkgutil
+for info in pkgutil.walk_packages(libavif_tpu_torch.__path__, "libavif_tpu_torch."):
+    if not info.name.rsplit(".", 1)[-1].startswith("_msac_"):  # the built C++ library
+        importlib.import_module(info.name)
 print(json.dumps({
+    "modules": {name: getattr(m, "__file__", None) for name, m in sys.modules.items()
+                if name.split(".")[0] == "libavif_tpu_torch"},
+    "blocked": sorted(name for name in sys.modules if name.split(".")[0] in ("jax", "libavif_tpu")),
     "attempts": attempts,
     "jax_modules": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
     "size": len(data),
@@ -144,23 +151,30 @@ print(json.dumps({
     "sato": [sato.depth, bool((sato.yuv_planes[0] == img16.yuv_planes[0]).all())],
     "cli_rcs": cli_rcs,
     "cli_png_shape": list(np.asarray(PILImage.open("cli.png")).shape),
-    "one_image_class": libavif_tpu.image.Image is io_formats.png_jpeg.Image,
-    "one_gain_map_class": libavif_tpu.image.GainMap is gainmap.GainMap,
+    "one_image_class": Image is io_formats.png_jpeg.Image,
+    "one_gain_map_class": libavif_tpu_torch.image.GainMap is gainmap.GainMap,
 }))
 """
 
 
-def test_port_imports_and_runs_without_jax(tmp_path):
+@pytest.fixture(scope="module")
+def blocked_run(tmp_path_factory):
+    """The subprocess's result, run once for the module."""
+    cwd = tmp_path_factory.mktemp("no_jax")
     proc = subprocess.run(
         [sys.executable, "-c", _SCRIPT],
-        cwd=tmp_path,
-        env={"PYTHONPATH": str(REPO), "PATH": "/usr/bin:/bin", "HOME": str(tmp_path)},
+        cwd=cwd,
+        env={"PYTHONPATH": str(REPO), "PATH": "/usr/bin:/bin", "HOME": str(cwd)},
         capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    result = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert set(result["attempts"]) <= {"libavif_tpu"}, result["attempts"]
-    assert result["jax_modules"] == ["jax"]  # only the blocking None entry
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_port_imports_and_runs_without_jax(blocked_run):
+    result = blocked_run
+    assert result["attempts"] == []
+    assert result["blocked"] == ["jax", "libavif_tpu"]  # only the blocking None entries
     assert result["size"] > 0 and result["shape"] == [32, 32]
     assert result["spec_size"] > 0 and result["spec_shape"] == [32, 32]
     assert result["alpha_shape"] == [32, 32]
@@ -173,67 +187,92 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     assert result["grid_shape"] == [128, 128]
     assert result["sato"] == [16, True]
     assert result["cli_rcs"] == [0, 0, 0, 0, 0] and result["cli_png_shape"] == [24, 40, 3]
+    assert set(result["modules"]) == set(PORT_MODULES)
 
 
-def _aliased():
-    from libavif_tpu_torch import _shared
-
-    return _shared.ALIASED
-
-
-def test_alias_table_covers_what_the_shared_files_import():
-    assert {"image", "utils.fractions", "utils.streams", "constants", "containers.items",
-            "containers.parse", "containers.write", "containers.mini", "utils.exif"} <= set(_aliased())
+def _module_name(path: pathlib.Path) -> str:
+    parts = path.relative_to(REPO).with_suffix("").parts
+    return ".".join(parts[:-1] if parts[-1] == "__init__" else parts)
 
 
-def test_shared_files_reach_one_copy_of_the_container_classes():
-    """A file loaded by path that imports ``..containers.items`` (or
-    ``.write``, ``.parse``, ``.mini``, ``..utils.exif``) gets the JAX
-    package's module, so ``Property`` and ``OutputItem`` are one class."""
-    import sys
-
-    import libavif_tpu.containers.items as items
-    import libavif_tpu.containers.write as write
-    from libavif_tpu_torch.api import encoder
-    from libavif_tpu_torch.hdr import gainmap
-
-    assert sys.modules["libavif_tpu_torch.containers.items"].Property is items.Property
-    assert sys.modules["libavif_tpu_torch.containers.write"].OutputItem is write.OutputItem
-    assert encoder.Property is items.Property and encoder.OutputItem is write.OutputItem
-    assert gainmap.GainMap is sys.modules["libavif_tpu_torch.image"].GainMap
+# Every module of the port, from its file tree.
+PORT_MODULES = sorted(_module_name(f) for f in PORT.rglob("*.py") if "__pycache__" not in f.parts)
 
 
-@pytest.mark.parametrize("name", _aliased())
-def test_shared_modules_are_aliases_not_copies(name):
-    import importlib
-
-    import libavif_tpu_torch.pixels  # noqa: F401  (installs the aliases)
-
-    assert importlib.import_module(f"libavif_tpu_torch.{name}") is importlib.import_module(
-        f"libavif_tpu.{name}"
-    )
+@pytest.mark.parametrize("name", PORT_MODULES)
+def test_every_loaded_module_is_the_ports_own_file(blocked_run, name):
+    """The subprocess loaded the module from its file under the port."""
+    loaded = blocked_run["modules"][name]
+    rel = pathlib.Path(*name.split("."))
+    want = REPO / rel / "__init__.py" if (REPO / rel).is_dir() else (REPO / rel).with_suffix(".py")
+    assert loaded == str(want) and pathlib.Path(loaded).is_relative_to(PORT)
 
 
-@pytest.mark.parametrize(
-    "module,owner",
-    [("pixels.reformat", "libavif_tpu_torch"), ("pixels.colr", "libavif_tpu_torch"),
-     ("pixels.scale", "libavif_tpu"), ("pixels.primaries", "libavif_tpu"),
-     ("io_formats.png_jpeg", "libavif_tpu"), ("io_formats.y4m", "libavif_tpu"),
-     ("hdr.gainmap", "libavif_tpu"), ("codec.av1.rdsearch_device", "libavif_tpu_torch"),
-     ("codec.av1.rdsearch", "libavif_tpu"), ("codec.av1.interenc", "libavif_tpu"),
-     ("codec.av1.stream", "libavif_tpu"), ("hdr.sampletransform", "libavif_tpu"),
-     ("api.io", "libavif_tpu"), ("api.encoder", "libavif_tpu_torch"),
-     ("api.decoder", "libavif_tpu_torch"), ("cli.avifenc", "libavif_tpu"),
-     ("cli.avifdec", "libavif_tpu"), ("cli.gainmaputil", "libavif_tpu")],
+# The JAX package's jax-free host code, copied at the same relative paths.
+COPIED = (
+    "constants.py", "image.py",
+    "containers/__init__.py", "containers/boxdump.py", "containers/compliance.py",
+    "containers/items.py", "containers/mini.py", "containers/obu.py", "containers/parse.py",
+    "containers/write.py",
+    "utils/__init__.py", "utils/diagnostics.py", "utils/exif.py", "utils/fractions.py",
+    "utils/streams.py",
+    "models/av1/msac.py",
+    "native/__init__.py", "native/msac.cc", "native/cdef.inc", "native/tile_walk.inc",
+    *(f"codec/av1/{name}.py" for name in (
+        "blocks", "cdef", "decode", "encode", "filmgrain", "headers", "inter", "interdec",
+        "interenc", "interpred", "intra", "loopfilter", "masks", "mvpred", "mvproj", "obmc",
+        "rdsearch", "refs", "restoration", "still", "stream", "superres", "tables",
+        "transforms", "warp")),
+    "codec/av1/tables_data.npz",
+    "pixels/iccmaker.py", "pixels/primaries.py", "pixels/scale.py",
+    "io_formats/jpeg_gainmap.py", "io_formats/png_jpeg.py", "io_formats/y4m.py",
+    "hdr/gainmap.py", "hdr/sampletransform.py",
+    "api/io.py",
+    "cli/avifdec.py", "cli/avifenc.py", "cli/gainmaputil.py",
 )
-def test_shared_packages_resolve_to_the_right_files(module, owner):
-    """Loaded under the port's name from the port's file (shadowing) or
-    the reference's (by path)."""
-    import importlib
 
-    mod = importlib.import_module(f"libavif_tpu_torch.{module}")
-    assert mod.__name__ == f"libavif_tpu_torch.{module}"
-    assert mod.__file__ == str(REPO / owner / (module.replace(".", "/") + ".py"))
+# Lines of a copy that differ from the reference and are not import lines.
+FIXES = {
+    "containers/compliance.py": [(
+        '__import__("libavif_tpu.constants", fromlist=["PixelFormat"])',
+        '__import__("libavif_tpu_torch.constants", fromlist=["PixelFormat"])',
+    )],
+}
+
+_IMPORT_LINE = re.compile(r"^\s*(from\s+\S+\s+import\b|import\s)")
+
+
+@pytest.mark.parametrize("rel", COPIED)
+def test_copied_file_equals_its_reference(rel):
+    port, ref = PORT / rel, REFERENCE / rel
+    if not rel.endswith((".py", ".cc", ".inc")):
+        assert port.read_bytes() == ref.read_bytes()
+        return
+    want = ref.read_text()
+    for old, new in FIXES.get(rel, []):
+        assert old in want
+        want = want.replace(old, new)
+    got_lines, want_lines = port.read_text().splitlines(), want.splitlines()
+    assert len(got_lines) == len(want_lines)
+    for k, (got, line) in enumerate(zip(got_lines, want_lines), 1):
+        assert got == line or (_IMPORT_LINE.match(got) and _IMPORT_LINE.match(line)), f"{rel}:{k}"
+
+
+_JAX_PACKAGE_IMPORT = re.compile(
+    r"^\s*(from\s+libavif_tpu(\.|\s)|import\s+libavif_tpu(\.|\s|,|$))"
+    r"|(__import__|import_module)\(\s*[\"']libavif_tpu[\"'.]"
+)
+
+
+@pytest.mark.parametrize("path", ["libavif_tpu_torch", "chip_smoke.py", "tests/test_torch_cuda.py"])
+def test_no_jax_package_import_in_port_sources(path):
+    """No ``libavif_tpu`` import that is not ``libavif_tpu_torch``."""
+    target = REPO / path
+    files = [target] if target.is_file() else sorted(target.rglob("*.py"))
+    assert files
+    for f in files:
+        for k, line in enumerate(f.read_text().splitlines(), 1):
+            assert not _JAX_PACKAGE_IMPORT.search(line), f"{f}:{k}: {line}"
 
 
 def test_shared_gainmap_and_png_code_reach_the_ports_reformat():
@@ -253,8 +292,8 @@ def test_shared_planner_reaches_the_ports_rd_program(monkeypatch):
 
     from libavif_tpu_torch.codec.av1 import rdsearch, rdsearch_device
 
-    assert rdsearch_device.__file__.startswith(str(REPO / "libavif_tpu_torch"))
-    assert rdsearch.__file__ == str(REPO / "libavif_tpu" / "codec" / "av1" / "rdsearch.py")
+    assert rdsearch_device.__file__ == str(PORT / "codec" / "av1" / "rdsearch_device.py")
+    assert rdsearch.__file__ == str(PORT / "codec" / "av1" / "rdsearch.py")
     # plan_luma imports ``from . import rdsearch_device as RDD`` when called
     calls = []
 

@@ -21,7 +21,6 @@ import pytest
 
 from libavif_tpu import pixels as jpix
 from libavif_tpu.constants import (
-    AvifError,
     ChromaDownsampling,
     ChromaUpsampling,
     ColorPrimaries,
@@ -34,8 +33,10 @@ from libavif_tpu.constants import (
 from libavif_tpu.image import Image, RGBImage
 from libavif_tpu.pixels import colr as jcolr
 from libavif_tpu_torch import pixels as tpix
+from libavif_tpu_torch.constants import AvifError as TAvifError
 from libavif_tpu_torch.pixels import colr as tcolr
 from libavif_tpu_torch.pixels import reformat as treformat
+from test_torch_classes import to_port
 
 MC = MatrixCoefficients
 F = PixelFormat
@@ -206,9 +207,9 @@ _ALPHA_FORMATS = [RGBFormat.RGBA, RGBFormat.ARGB, RGBFormat.BGRA, RGBFormat.ABGR
 @pytest.mark.parametrize("fmt", [RGBFormat.RGB, RGBFormat.BGR, *_ALPHA_FORMATS], ids=lambda f: f.name)
 def test_image_yuv_to_rgb_matches_jax(fmt, image_premultiplied, rgb_premultiplied):
     img = _image_with_alpha(int(fmt), image_premultiplied)
-    got, want = RGBImage(37, 23, 8, fmt), RGBImage(37, 23, 8, fmt)
+    got, want = to_port(RGBImage(37, 23, 8, fmt)), RGBImage(37, 23, 8, fmt)
     got.alpha_premultiplied = want.alpha_premultiplied = rgb_premultiplied
-    tpix.image_yuv_to_rgb(img, got, device="cpu")
+    tpix.image_yuv_to_rgb(to_port(img), got, device="cpu")
     jpix.image_yuv_to_rgb(img, want)
     assert_close_planes(got.pixels, want.pixels, fmt.name)
 
@@ -221,8 +222,8 @@ def test_image_rgb_to_yuv_matches_jax(fmt, rgb_premultiplied):
     rgb.pixels = rng.integers(0, 256, (23, 37, rgb.channel_count)).astype(np.uint8)
     rgb.alpha_premultiplied = rgb_premultiplied
     rgb.chroma_downsampling = ChromaDownsampling.SHARP_YUV if rgb_premultiplied else ChromaDownsampling.AUTOMATIC
-    got, want = Image(37, 23, 10, F.YUV420), Image(37, 23, 10, F.YUV420)
-    tpix.image_rgb_to_yuv(rgb, got, device="cpu")
+    got, want = to_port(Image(37, 23, 10, F.YUV420)), Image(37, 23, 10, F.YUV420)
+    tpix.image_rgb_to_yuv(to_port(rgb), got, device="cpu")
     jpix.image_rgb_to_yuv(rgb, want)
     for g, w in zip(got.yuv_planes, want.yuv_planes):
         assert_close_planes(g, w, fmt.name)
@@ -235,12 +236,12 @@ def test_image_rgb_to_yuv_matches_jax(fmt, rgb_premultiplied):
 def test_unsupported_layouts_raise_as_the_reference():
     rgb = _rgb(0, 8, 8, 8)
     kw = dict(depth=8, rgb_depth=8, yuv_range=Range.FULL, device="cpu")
-    with pytest.raises(AvifError):
+    with pytest.raises(TAvifError):
         tpix.rgb_to_yuv_arrays(rgb, yuv_format=F.YUV420, matrix_coefficients=MC.IDENTITY, **kw)
-    with pytest.raises(AvifError):
+    with pytest.raises(TAvifError):
         tpix.rgb_to_yuv_arrays(rgb, yuv_format=F.YUV444, matrix_coefficients=MC.YCGCO_RE, **kw)
     y = np.zeros((8, 8), np.uint8)
-    with pytest.raises(AvifError):
+    with pytest.raises(TAvifError):
         tpix.yuv_to_rgb_arrays(y, None, None, yuv_format=F.YUV400, matrix_coefficients=MC.IDENTITY, **kw)
 
 

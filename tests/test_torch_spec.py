@@ -27,6 +27,7 @@ from libavif_tpu.image import Image
 from libavif_tpu_torch import api
 from libavif_tpu_torch.codec import frame
 from libavif_tpu_torch.codec.av1 import rdsearch_device as rdd
+from test_torch_classes import fields, to_port
 
 
 def _image(seed, w=64, h=48, depth=8, fmt=PixelFormat.YUV420, alpha=False):
@@ -104,7 +105,7 @@ def _y_psnr(data, src):
 def test_bytes_match_jax_with_rd_program_off(monkeypatch, imgs, quality, speed):
     monkeypatch.setenv("LIBAVIF_TPU_DEVICE_RD", "0")
     before = rdd.dispatch_plan_costs.runs.copy()
-    ours = api.encode_batch(imgs, quality=quality, speed=speed, device="cpu")
+    ours = api.encode_batch(to_port(imgs), quality=quality, speed=speed, device="cpu")
     assert rdd.dispatch_plan_costs.runs == before  # every frame is under MIN_PELS
     assert ours == japi.encode_batch(imgs, quality=quality, speed=speed)
     for data, img in zip(ours, imgs):
@@ -117,10 +118,10 @@ def test_frame_layer_matches_jax(monkeypatch):
     monkeypatch.setenv("LIBAVIF_TPU_DEVICE_RD", "0")
     img = _image(8, 40, 24, 12, PixelFormat.YUV400)
     params = dict(quality=60, speed=5, cq_level=20, auto_tiling=True)
-    ours = frame.encode_frame(img, frame.FrameParams(**params), "cpu")
+    ours = frame.encode_frame(to_port(img), frame.FrameParams(**params), "cpu")
     ref = jframe.encode_frame(img, jframe.FrameParams(**params))
-    assert ours[0] == ref[0] and ours[1] == ref[1]
-    streams = [ours[0], frame.encode_frame(_image(9), frame.FrameParams(codec="native"), "cpu")[0]]
+    assert ours[0] == ref[0] and fields(ours[1]) == fields(ref[1])
+    streams = [ours[0], frame.encode_frame(to_port(_image(9)), frame.FrameParams(codec="native"), "cpu")[0]]
     for got, want in zip(frame.decode_frames_pipelined(streams, "cpu"),
                          jframe.decode_frames_pipelined(streams)):
         _assert_same_decode(got, want)
@@ -130,12 +131,12 @@ def test_opaque_alpha_is_left_out():
     img = _image(6)
     img.alpha_plane = np.full((img.height, img.width), 255, np.uint8)
     plain = _image(6)
-    assert api.encode_batch([img], device="cpu") == api.encode_batch([plain], device="cpu")
+    assert api.encode_batch([to_port(img)], device="cpu") == api.encode_batch([to_port(plain)], device="cpu")
 
 
 def test_alpha_item_is_written_and_read_back():
     img = _image(7, alpha=True)
-    [data] = api.encode_batch([img], quality=100, device="cpu")
+    [data] = api.encode_batch([to_port(img)], quality=100, device="cpu")
     meta = parse_container(data).meta
     [alpha] = [i for i in meta.items.values() if i.aux_for_id == meta.primary_item_id]
     assert alpha.prem_by_id == meta.primary_item_id
@@ -161,7 +162,7 @@ def test_rd_program_on_matches_jax_operating_point(monkeypatch):
 
     monkeypatch.setattr(jrdd, "plan_costs_device", probe)
     before = rdd.dispatch_plan_costs.runs["cpu"]
-    [ours] = api.encode_batch([img], quality=70, speed=6, device="cpu")
+    [ours] = api.encode_batch([to_port(img)], quality=70, speed=6, device="cpu")
     assert rdd.dispatch_plan_costs.runs["cpu"] == before + 1
     [ref] = japi.encode_batch([img], quality=70, speed=6)
     assert engaged == [True], "the JAX device RD path did not run"
