@@ -7,23 +7,25 @@ Phases, each printed as it runs; any failure ends the run non-zero:
   1. device: the card's name and power limit, torch and CUDA versions;
      exits non-zero when no CUDA device is available;
   2. build: K1 (libavif_tpu_torch/csrc/transform2d.cu) and K2
-     (csrc/encode_step.cu) from the sources, one nvcc per source, in
+     (csrc/encode_wavefront.cu) from the sources, one nvcc per source, in
      parallel;
   3. K1 on the card against its plain PyTorch version, every transform
      type and size, forward and inverse, with inputs that wrap int32;
      both timed at the decode path's shape (1536 blocks of 16x16,
      inverse), the kernel also device-only from torch.profiler;
- 3b. K2, the encode wavefront step, on the card against its plain
-     version (torch.equal) for n in {4, 8, 16, 32}, depths 8/10/12,
-     speeds 0/3/6/9 and lossless; both timed per diagonal at the main
-     path's shapes (32 luma lanes; 2 x 16 chroma lanes), CUDA events
-     around the plane loop, the kernel also device-only from
-     torch.profiler;
+ 3b. K2, the encode wavefront (one persistent launch per plane group),
+     on the card against the plain per-diagonal loop (torch.equal) for n
+     in {4, 8, 16, 32}, depths 8/10/12, speeds 0/3/6/9 and lossless, a
+     4032x3024 plane with more lanes than the cooperative grid holds, and
+     a plane one block wide; both timed per plane-group launch at the
+     main path's shapes (768x512 luma, P = 1; the 384x256 chroma pair,
+     P = 2), CUDA events around the call, the kernel also device-only
+     from torch.profiler, against the throughput and the chain bound;
   4. own-format path: 8 frames of 768x512 4:2:0 8-bit through
      libavif_tpu_torch.api.encode_batch(quality=75, speed=6,
-     codec="native"): K2 launches 8 x (79 + 39), none of K1; then the
-     same batch under torch.profiler (device busy share), and its device
-     stage and host entropy coding timed alone;
+     codec="native"): K2 launches 8 x 2 (luma, chroma pair), none of K1;
+     then the same batch under torch.profiler (device busy share), and
+     its device stage and host entropy coding timed alone;
   5. the same first frame encoded on the CPU (plain versions): the .avif
      bytes must be identical;
   6. round trip: decode on the card, equal to the CPU decode; Y-PSNR;
@@ -68,7 +70,7 @@ Phases, each printed as it runs; any failure ends the run non-zero:
      and Y-PSNR within 0.3 dB per frame; nth_image(5) and read_all equal
      to the sequential decode;
  14. own-format animation: the same frames with codec_choice="native":
-     K2 launches 8 x (79 + 39) and no K1 launch, bytes equal to the CPU
+     K2 launches 8 x 2 and no K1 launch, bytes equal to the CPU
      port's, read_all on the card equal to the CPU decode;
  15. grid: 2x2 cells of 768x512 (1536x1024) with both codecs: 4 RD runs
      on the card for the spec cells, the own-format cells through K2;
@@ -109,6 +111,7 @@ K1_SHAPE = (1536, 16)  # (blocks, n) of one decode launch: a 768x512 luma plane
 # 1.98 GHz boost clock), for the kernels' bounds.
 HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_S = 132 * 64 * 1.98e9
+FP32_FLOP_PER_S = 67e12  # outside the tensor cores: the RD program refuses TF32
 PHOTO_W, PHOTO_H = 4032, 3024  # a phone camera's 12.2 MP still
 
 
@@ -221,15 +224,22 @@ def kernel_ms(device: dict, name: str, launches: int):
 
 
 def step_configs():
-    """K2's configurations: n in {4, 8, 16, 32}; depths 8/10/12 at speeds
-    0/3/6/9; lossless at 8 and 12 bits; two breadth overrides."""
+    """K2's configurations (n, depth, lossless, speed, search, (h, w), P):
+    n in {4, 8, 16, 32}; depths 8/10/12 at speeds 0/3/6/9; lossless at 8
+    and 12 bits; two breadth overrides, all on two 70x90 planes; then a
+    4032x3024 plane (189 lanes of 16x16 blocks, more than the cooperative
+    grid holds) and two planes one block wide (Cb = 1)."""
     cases = []
     for n in (4, 8, 16, 32):
         for depth in (8, 10, 12):
             for speed in (0, 3, 6, 9):
                 cases.append((n, depth, False, speed, (None, None)))
         cases += [(n, 8, True, 6, (None, None)), (n, 12, True, 6, (None, None))]
-    return cases + [(16, 10, False, 3, (5, 3)), (16, 8, False, 0, (13, 5))]
+    cases += [(16, 10, False, 3, (5, 3)), (16, 8, False, 0, (13, 5))]
+    return [c + ((70, 90), 2) for c in cases] + [
+        (16, 8, False, SPEED, (None, None), (PHOTO_H, PHOTO_W), 1),
+        (8, 10, False, 0, (None, None), (200, 8), 2),
+    ]
 
 
 def seeded_planes(seed: int, depth: int, shape, n: int, p: int) -> torch.Tensor:
@@ -245,48 +255,61 @@ def seeded_planes(seed: int, depth: int, shape, n: int, p: int) -> torch.Tensor:
 
 
 def step_bound_ms(p: int, rb: int, cb: int, n: int, n_cand: int) -> tuple:
-    """(bound ms, 'operations' or 'bytes') of one plane loop of K2: the
-    transforms' int32 multiply-adds (4 passes of n^3 per candidate) over
-    the CUDA cores' IMAD rate, against the bytes (source blocks read;
-    levels, reconstruction, modes, symbols and the carry of every
-    diagonal written) over HBM."""
+    """(bound ms, 'operations' or 'bytes') of one K2 launch over a plane
+    group: the transforms' int32 multiply-adds (4 passes of n^3 per
+    candidate) over the whole card's IMAD rate, against the bytes (source
+    blocks read; levels, reconstruction, modes, symbols and the per-lane
+    progress counters written) over HBM."""
     blocks = p * rb * cb
     imads = blocks * n_cand * 4 * n**3
-    nbytes = 4 * (blocks * n * n * 3 + 2 * blocks + (rb + cb - 1) * p * rb * (2 * n + 1))
+    nbytes = 4 * (blocks * n * n * 3 + 2 * blocks + p * rb)
     ops_ms, bytes_ms = imads / IMAD_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
+def chain_bound_ms(rb: int, cb: int, n: int, n_cand: int) -> float:
+    """The least time of the longest dependency chain of one plane: its
+    rb + cb - 1 blocks one after another, each at one SM's IMAD rate."""
+    return (rb + cb - 1) * n_cand * 4 * n**3 / (IMAD_PER_S / 132) * 1e3
+
+
 def check_step(wavefront, recon, tables, dev, smi):
-    """Phase 3b: K2 against its plain version; timed per diagonal at the
-    main path's shapes. Returns the kernel line's numbers for K2."""
+    """Phase 3b: K2 against the plain per-diagonal loop; timed per
+    plane-group launch at the main path's shapes. Returns the kernel
+    line's numbers for K2."""
     configs = step_configs()
     worst = 0
-    for n, depth, lossless, speed, search in configs:
-        src = seeded_planes(n * 7 + depth, depth, (70, 90), n, 2).to(dev)
+    for n, depth, lossless, speed, search, shape, p in configs:
+        src = seeded_planes(n * 7 + depth, depth, shape, n, p).to(dev)
         dc, ac = (1, 1) if lossless else tables.step_sizes(150, depth)
         kw = dict(n=n, depth=depth, lossless=lossless, speed=speed, search=search)
         plain = recon.encode_plane_with(wavefront.encode_step_reference, src, dc, ac, **kw)
-        before = wavefront.encode_step.launches
+        before = wavefront.encode_wavefront.launches
         kernel = recon.encode_plane(src, dc, ac, **kw)
         torch.cuda.synchronize()
-        rb, cb = src.shape[1] // n, src.shape[2] // n
-        if wavefront.encode_step.launches - before != rb + cb - 1:
-            raise AssertionError(f"K2: {wavefront.encode_step.launches - before} launches for {rb + cb - 1} diagonals")
+        if wavefront.encode_wavefront.launches - before != 1:
+            raise AssertionError(f"K2: {wavefront.encode_wavefront.launches - before} launches for one plane group")
         for name, a, b in zip(("modes", "levels", "recon", "tx_types"), kernel, plain):
             diff = int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
             worst = max(worst, diff)
             if not torch.equal(a, b):
                 raise AssertionError(f"K2 differs from its plain version: {name}, n={n} depth={depth} "
-                                     f"lossless={lossless} speed={speed} search={search}, max|diff| {diff}")
-    print(f"[k2] {len(configs)} configurations equal to the plain version (torch.equal)", flush=True)
+                                     f"lossless={lossless} speed={speed} search={search} {shape} P={p}, "
+                                     f"max|diff| {diff}")
+    n, depth, _, speed, search, shape, p = configs[-2]
+    grid = wavefront.resident_ctas(recon.search_config(n, depth, False, 1, 1, speed, search), dev)
+    if not p * (shape[0] // n) > grid:
+        raise AssertionError(f"K2: {p * (shape[0] // n)} lanes fit in the cooperative grid of {grid}")
+    print(f"[k2] {len(configs)} configurations equal to the plain per-diagonal loop (torch.equal), "
+          f"one launch each; {shape[1]}x{shape[0]} at n={n}: {p * (shape[0] // n)} lanes on a cooperative "
+          f"grid of {grid} CTAs", flush=True)
 
     dc, ac = tables.step_sizes(150, 8)  # q75
     kw = dict(n=16, depth=8, lossless=False, speed=SPEED)
     numbers = {}
     for name, (h, w), p in (("luma", (H, W), 1), ("chroma", (H // 2, W // 2), 2)):
         src = seeded_planes(3, 8, (h, w), 16, p).to(dev)
-        diagonals = h // 16 + w // 16 - 1
+        rb, cb = h // 16, w // 16
 
         def kernel():
             recon.encode_plane(src, dc, ac, **kw)
@@ -295,21 +318,36 @@ def check_step(wavefront, recon, tables, dev, smi):
             recon.encode_plane_with(wavefront.encode_step_reference, src, dc, ac, **kw)
 
         p1 = time_ms(plain, 2)
-        k1 = time_ms(kernel, 10)
-        k2 = time_ms(kernel, 10)
+        k1 = time_ms(kernel, 20)
+        k2 = time_ms(kernel, 20)
         p2 = time_ms(plain, 2)
-        before = wavefront.encode_step.launches
-        _, device = profile_device(kernel, 5)
-        dev_ms = kernel_ms(device, "encode_step_kernel", wavefront.encode_step.launches - before)
-        bound, bound_by = step_bound_ms(p, h // 16, w // 16, 16, 13)
-        numbers[name] = dict(ms=dev_ms, max_abs_err=worst, call_ms=(k1 + k2) / 2 / diagonals, plain_ms=(p1 + p2) / 2 / diagonals,
-                             bound_ms=bound / diagonals, bound_by=bound_by)
-        print(f"[k2] {name} {w}x{h} P={p} s{SPEED} n=16: per diagonal ({diagonals}) kernel device "
-              f"{dev_ms if dev_ms is None else f'{dev_ms:.5f}'} ms (torch.profiler), call "
-              f"{(k1 + k2) / 2 / diagonals:.5f} ms (runs {k1 / diagonals:.5f}/{k2 / diagonals:.5f}), "
-              f"plain {(p1 + p2) / 2 / diagonals:.5f} ms (runs {p1 / diagonals:.5f}/{p2 / diagonals:.5f}); "
-              f"bound {bound / diagonals:.5f} ms ({bound_by}); CUDA events, order plain, kernel, kernel, "
-              f"plain; on {smi}", flush=True)
+        before = wavefront.encode_wavefront.launches
+        _, device = profile_device(kernel, 10)
+        dev_ms = kernel_ms(device, "encode_wavefront_kernel", wavefront.encode_wavefront.launches - before)
+        bound, bound_by = step_bound_ms(p, rb, cb, 16, 13)
+        chain = chain_bound_ms(rb, cb, 16, 13)
+        diagonals = rb + cb - 1
+        numbers[name] = dict(ms=dev_ms, max_abs_err=worst, call_ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                             bound_ms=bound, bound_by=bound_by, chain_bound_ms=chain)
+        per_diag = "not measured" if dev_ms is None else f"{dev_ms / diagonals:.5f} ms"
+        print(f"[k2] {name} {w}x{h} P={p} s{SPEED} n=16: per launch (the whole plane group) kernel device "
+              f"{dev_ms if dev_ms is None else f'{dev_ms:.5f}'} ms (torch.profiler, 10 launches), call "
+              f"{(k1 + k2) / 2:.5f} ms (runs {k1:.5f}/{k2:.5f}), plain per-diagonal loop "
+              f"{(p1 + p2) / 2:.5f} ms (runs {p1:.5f}/{p2:.5f}); throughput bound {bound:.5f} ms "
+              f"({bound_by}), chain bound {chain:.5f} ms ({diagonals} blocks at one SM's rate); per "
+              f"diagonal ({diagonals}) equivalent: device {per_diag}, call {(k1 + k2) / 2 / diagonals:.5f} ms; "
+              f"CUDA events, order plain, kernel, kernel, plain; on {smi}", flush=True)
+
+    # Where a block's time goes: a plane one block high (one CTA walks its
+    # own lane and never waits) against one a block wide (every block
+    # waits for the lane above, on another SM).
+    per_block = {}
+    for name, (h, w) in (("row", (16, W)), ("column", (H, 16))):
+        src = seeded_planes(5, 8, (h, w), 16, 1).to(dev)
+        per_block[name] = time_ms(lambda: recon.encode_plane(src, dc, ac, **kw), 20) / (h // 16 * (w // 16))
+    print(f"[k2] per 16x16 block at s{SPEED}: {per_block['row'] * 1e3:.3f} us in a lane of {W // 16} "
+          f"(no wait), {per_block['column'] * 1e3:.3f} us in a column of {H // 16} (a wait on another "
+          f"SM at each block); CUDA events over 20 launches, launch gaps included; on {smi}", flush=True)
     return numbers
 
 
@@ -340,6 +378,34 @@ def y_psnr(decoded, source) -> float:
     return 10 * np.log10(255.0**2 / max(np.mean(err * err), 1e-12))
 
 
+def rd_bound_ms(rdsearch_device, h: int, w: int) -> tuple:
+    """(bound ms, 'operations' or 'bytes') of one RD pre-pass over an h x w
+    8-bit luma plane at SPEED: the fp32 products its shapes need (each
+    prediction bank's ext1 @ G, the Hadamard SATD and the DCT of every
+    candidate residual) over the fp32 rate, against the plane read as
+    int32 and the packed float32 tables written, over HBM."""
+    prog = rdsearch_device._program(h, w, SPEED, 8, "cpu")
+    meta = prog.meta
+    flops = 0
+    for kind, key, _shape, _lo, _hi in meta["layout"]:
+        if kind == "rate":  # computed with "dist", from the same residuals
+            continue
+        rows, cols = meta["grid"][key]
+        bank = prog.delta_banks[key] if kind == "delta" else prog.mode_banks[key]
+        if bank.G is not None:
+            flops += 2 * rows * cols * bank.G.shape[0] * bank.G.shape[1]
+        res = rows * cols * len(bank.variants) * key * key  # residual samples
+        if kind in ("satd", "delta"):
+            flops += 2 * res * min(8, key) ** 2
+        elif key in prog.kron_dct:
+            flops += 2 * res * key * key
+        else:
+            flops += 4 * res * min(key, 64)
+    ops_ms = flops / FP32_FLOP_PER_S * 1e3
+    bytes_ms = 4 * (h * w + meta["total"]) / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
 def check_rd_tables(rdsearch_device, luma, qindex, dev, smi):
     """Phase 7: the RD pre-pass on the card against the CPU."""
     card = rdsearch_device.dispatch_plan_costs(luma, qindex, SPEED, 8, dev)
@@ -361,8 +427,10 @@ def check_rd_tables(rdsearch_device, luma, qindex, dev, smi):
     for _ in range(2):
         rdsearch_device.dispatch_plan_costs(luma, qindex, SPEED, 8, "cpu").flat()
     cpu_ms = (time.perf_counter() - t0) / 2 * 1e3
+    bound, bound_by = rd_bound_ms(rdsearch_device, *luma.shape)
     print(f"[rd] program per frame: card {card_ms:.3f} ms (CUDA events, 10 runs) on {smi}; "
-          f"CPU {cpu_ms:.3f} ms (host clock, 2 runs) on the same machine", flush=True)
+          f"CPU {cpu_ms:.3f} ms (host clock, 2 runs) on the same machine; bound {bound:.5f} ms "
+          f"({bound_by})", flush=True)
 
 
 def plane_diff(got: np.ndarray, want: np.ndarray, what: str) -> int:
@@ -422,10 +490,18 @@ def check_reformat(reformat, dev, smi):
         fwd_dev_ms = time_ms(lambda: reformat._rgb_to_yuv(rgb_dev, sharp_yuv=sharp, **prog_kw), 5)
         inv_dev_ms = time_ms(lambda: reformat._yuv_to_rgb(
             *planes_dev, chroma_upsampling=ChromaUpsampling.AUTOMATIC, **prog_kw), 5)
+        # bound: the RGB samples and the YUV planes at their sample widths,
+        # each read or written once, over HBM; the 3x3 matrix's 18 flops per
+        # pixel at the fp32 rate take a tenth of that
+        bound = (rgb.nbytes + sum(p.nbytes for p in host)) / HBM_BYTES_PER_S * 1e3
+        ops = 18 * PHOTO_W * PHOTO_H / FP32_FLOP_PER_S * 1e3
+        bound_by = "bytes" if bound >= ops else "operations"
+        bound = max(bound, ops)
         print(f"[reformat] {name} {PHOTO_W}x{PHOTO_H}: card vs CPU samples off by one {off} "
               f"(Y, U, V, RGB); rgb->yuv card {fwd_ms:.3f} ms (program alone {fwd_dev_ms:.3f} ms), "
               f"CPU {cpu_fwd:.3f} ms; yuv->rgb card {inv_ms:.3f} ms (program alone {inv_dev_ms:.3f} ms), "
-              f"CPU {cpu_inv:.3f} ms; CUDA events over 5 calls on {smi}", flush=True)
+              f"CPU {cpu_inv:.3f} ms; bound {bound:.5f} ms each way ({bound_by}); CUDA events over 5 "
+              f"calls on {smi}", flush=True)
 
 
 def service_rgb(i: int) -> np.ndarray:
@@ -503,10 +579,10 @@ def check_rgb_service(io_formats, reformat, encode_batch, decode, smi):
 
 
 def k2_per_frame() -> int:
-    """K2 launches of one W x H 4:2:0 own-format encode: one per wavefront
-    diagonal of 16x16 blocks, luma (79 at 768x512) and the two chroma
-    planes together (39)."""
-    return (-(-W // 16) + -(-H // 16) - 1) + (-(-W // 32) + -(-H // 32) - 1)
+    """K2 launches of one W x H 4:2:0 own-format encode: one per plane
+    group of one geometry in 16x16 blocks, luma and the two chroma planes
+    together."""
+    return len({(-(-H // 16), -(-W // 16)), (-(-H // 32), -(-W // 32))})
 
 
 def pan_frames():
@@ -620,12 +696,12 @@ def check_spec_animation(api, rdsearch_device, frames, dev, smi):
 
 def check_native_animation(api, cuda_kernels, wavefront, frames, dev, smi):
     """Phase 14: the same frames in the own format."""
-    cuda_kernels.transform_2d.launches = wavefront.encode_step.launches = 0
+    cuda_kernels.transform_2d.launches = wavefront.encode_wavefront.launches = 0
     t0 = time.perf_counter()
     data = encode_animation(api, frames, dev, codec_choice="native")
     torch.cuda.synchronize()
     enc_s = time.perf_counter() - t0
-    launches = (wavefront.encode_step.launches, cuda_kernels.transform_2d.launches)
+    launches = (wavefront.encode_wavefront.launches, cuda_kernels.transform_2d.launches)
     if launches != (BATCH * k2_per_frame(), 0):
         raise AssertionError(f"K2, K1 launches {launches}, expected {(BATCH * k2_per_frame(), 0)}")
     t0 = time.perf_counter()
@@ -665,12 +741,12 @@ def check_grid(api, rdsearch_device, cuda_kernels, wavefront, frames, dev, smi):
         enc = api.Encoder(device=dev)
         enc.quality, enc.speed, enc.codec_choice = QUALITY, SPEED, codec
         runs.clear()
-        cuda_kernels.transform_2d.launches = wavefront.encode_step.launches = 0
+        cuda_kernels.transform_2d.launches = wavefront.encode_wavefront.launches = 0
         t0 = time.perf_counter()
         data = enc.write_grid(cells, columns=2, rows=2)
         torch.cuda.synchronize()
         enc_s = time.perf_counter() - t0
-        launches = (wavefront.encode_step.launches, cuda_kernels.transform_2d.launches)
+        launches = (wavefront.encode_wavefront.launches, cuda_kernels.transform_2d.launches)
         rd = dict(runs)
         want = ({torch.device(dev).type: 4}, (0, 0)) if codec == "auto" else ({}, (4 * k2_per_frame(), 0))
         if (rd, launches) != want:
@@ -896,7 +972,7 @@ def main() -> int:
     load_s = time.perf_counter() - t0
     print(f"[build] nvcc {_build.build_seconds:.3f} s, load {load_s:.3f} s", flush=True)
     for line in _build.build_log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if "registers" in line or "Compiling entry" in line or "spill" in line:
             print(f"[build] {line.strip()}", flush=True)
 
     # 3. K1 against its plain version, at the decode path's shape
@@ -939,13 +1015,13 @@ def main() -> int:
     t0 = time.perf_counter()
     encode_batch(imgs[:1], quality=QUALITY, speed=SPEED, codec="native", device=dev)
     print(f"[main] warm-up frame {time.perf_counter() - t0:.3f} s", flush=True)
-    cuda_kernels.transform_2d.launches = wavefront.encode_step.launches = 0
+    cuda_kernels.transform_2d.launches = wavefront.encode_wavefront.launches = 0
     t0 = time.perf_counter()
     files = encode_batch(imgs, quality=QUALITY, speed=SPEED, codec="native", device=dev)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = (wavefront.encode_step.launches, cuda_kernels.transform_2d.launches)
-    # per frame: one K2 launch per diagonal, 79 luma + 39 chroma; K1 runs on decode only
+    launches = (wavefront.encode_wavefront.launches, cuda_kernels.transform_2d.launches)
+    # per frame: one K2 launch per plane group, luma and the chroma pair; K1 runs on decode only
     if launches != (BATCH * k2_per_frame(), 0):
         raise AssertionError(f"K2, K1 launches {launches}, expected {(BATCH * k2_per_frame(), 0)}")
     step_launches = launches[0]
@@ -956,7 +1032,7 @@ def main() -> int:
     wall, device = profile_device(
         lambda: encode_batch(imgs, quality=QUALITY, speed=SPEED, codec="native", device=dev))
     busy = sum(device.values()) / 1e3
-    step_main = kernel_ms(device, "encode_step_kernel", BATCH * k2_per_frame())
+    step_main = kernel_ms(device, "encode_wavefront_kernel", BATCH * k2_per_frame())
     print(f"[main] under torch.profiler: wall {wall:.3f} s, device busy {busy:.4f} s "
           f"({100 * busy / wall:.2f}%), K2 device {step_main if step_main is None else f'{step_main:.5f}'} "
           f"ms per launch; top device entries: "
@@ -1010,7 +1086,7 @@ def main() -> int:
 
     # 8. spec main path (the default codec)
     runs = rdsearch_device.dispatch_plan_costs.runs
-    cuda_kernels.transform_2d.launches = wavefront.encode_step.launches = 0
+    cuda_kernels.transform_2d.launches = wavefront.encode_wavefront.launches = 0
     runs.clear()
     t0 = time.perf_counter()
     spec_files = encode_batch(imgs, quality=QUALITY, speed=SPEED, device=dev)
@@ -1118,17 +1194,18 @@ def main() -> int:
             "library_ms": None,  # no PyTorch call: CUDA has no int32 matmul, and K1 rounds between passes
         },
         {
-            "name": "encode_step",
+            "name": "encode_wavefront",
             "route": "cuda",
-            "source": "libavif_tpu_torch/csrc/encode_step.cu",
+            "source": "libavif_tpu_torch/csrc/encode_wavefront.cu",
             "replaces": "libavif_tpu/codec/recon.py:284",
             "launches": step_launches,  # phase 4: the 8-frame own-format batch
             "max_abs_err": step["luma"]["max_abs_err"],  # over phase 3b's configurations
-            "ms": step["luma"]["ms"],
+            "ms": step["luma"]["ms"],  # one launch: the 768x512 luma plane
             "call_ms": step["luma"]["call_ms"],
             "plain_ms": step["luma"]["plain_ms"],
             "bound_ms": step["luma"]["bound_ms"],
             "bound_by": step["luma"]["bound_by"],
+            "chain_bound_ms": step["luma"]["chain_bound_ms"],
             "library_ms": None,  # no PyTorch call computes the fused mode search
             "chroma": step["chroma"],
         },

@@ -37,11 +37,48 @@ numpy arrays and bytes.
 
 Every public function that touches a device takes ``device=``; the
 default is ``default_device()``. There is no global device state.
+
+The top level re-exports the JAX package's names (result codes, the
+enums, ``Image`` and its boxes, ``GainMap``), from the port's own
+``constants`` and ``image``, and sets ``__version__``.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .constants import (
+    VERSION,
+    AvifError,
+    ChromaDownsampling,
+    ChromaSamplePosition,
+    ChromaUpsampling,
+    ColorPrimaries,
+    MatrixCoefficients,
+    PixelFormat,
+    Range,
+    Result,
+    RGBFormat,
+    StrictFlags,
+    TransferCharacteristics,
+    TransformFlags,
+    result_to_string,
+)
+from .image import (
+    CleanApertureBox,
+    CropRect,
+    GainMap,
+    GainMapMetadata,
+    Image,
+    ImageMirror,
+    ImageRotation,
+    PixelAspectRatioBox,
+    RGBImage,
+    clap_from_crop_rect,
+    crop_rect_from_clap,
+)
+
+__version__ = VERSION
 
 
 def default_device() -> torch.device:
@@ -49,4 +86,32 @@ def default_device() -> torch.device:
     return torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
 
-__all__ = ["default_device"]
+__all__ = [
+    "VERSION",
+    "AvifError",
+    "ChromaSamplePosition",
+    "ChromaDownsampling",
+    "ChromaUpsampling",
+    "ColorPrimaries",
+    "MatrixCoefficients",
+    "PixelFormat",
+    "Range",
+    "Result",
+    "RGBFormat",
+    "StrictFlags",
+    "TransferCharacteristics",
+    "TransformFlags",
+    "result_to_string",
+    "CleanApertureBox",
+    "CropRect",
+    "GainMap",
+    "GainMapMetadata",
+    "Image",
+    "ImageMirror",
+    "ImageRotation",
+    "PixelAspectRatioBox",
+    "RGBImage",
+    "clap_from_crop_rect",
+    "crop_rect_from_clap",
+    "default_device",
+]

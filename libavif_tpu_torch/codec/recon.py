@@ -9,14 +9,18 @@ per-lane bottom rows, right columns and top-row corners:
 
   top(r, c)      = bottom row of (r-1, c)    = roll(bottoms, 1)[r]
   left(r, c)     = right column of (r, c-1)  = same lane, previous step
-  topleft(r, c)  = last pixel of top(r, c-1) = carried per lane
+  topleft(r, c)  = roll(toplasts, 1)[r], where lane r-1 carried the last
+                   pixel of its own top row: the bottom-right pixel of
+                   (r-2, c), not of (r-1, c-1) (the JAX package's carry,
+                   kept for equal bytes; ``wavefront.neighbors_from_outputs``)
 
 The JAX ``lax.scan`` is a Python loop over the rb+cb-1 diagonals here,
 and the JAX ``vmap`` over same-geometry planes (U with V) is a leading
 plane dimension P. Every step is launched asynchronously; nothing in the
-loop waits for the device. On encode each step is one launch of the K2
-kernel (``ops/wavefront.py``, ``csrc/encode_step.cu``) on a CUDA tensor,
-and its plain version on a CPU tensor.
+loop waits for the device. On encode the whole wavefront of a plane
+group is one launch of the K2 kernel (``ops/wavefront.py``,
+``csrc/encode_wavefront.cu``) on a CUDA tensor, and its plain version on
+a CPU tensor.
 
 The encoder searches every (mode, transform) pair of the speed's search
 set exhaustively: predict, residual, forward transform, deadzone
@@ -215,30 +219,51 @@ def encode_plane(src, dc_step: int, ac_step: int, *, n: int, depth: int, lossles
     src: ([P,] Rb*n, Cb*n) int32 (already padded). Returns (modes
     ([P,] Rb, Cb) int32, levels ([P,] Rb, Cb, n, n) int32, recon
     ([P,] Rb*n, Cb*n) int32, tx_types ([P,] Rb, Cb) int32 — indices into
-    TX_SET_ALL). Each diagonal is one ``wavefront.encode_step``: the K2
-    kernel for a CUDA tensor, its plain version for a CPU tensor."""
-    return encode_plane_with(wavefront.encode_step, src, dc_step, ac_step, n=n, depth=depth,
-                             lossless=lossless, speed=speed, search=search)
+    TX_SET_ALL). The whole wavefront is one ``wavefront.encode_wavefront``:
+    one K2 launch for a CUDA tensor, its plain version for a CPU tensor."""
+    src_blocks, outs, cfg, squeeze = _encode_setup(src, dc_step, ac_step, n, depth, lossless,
+                                                   speed, search)
+    wavefront.encode_wavefront(src_blocks, outs, cfg)
+    return _encode_results(outs, squeeze)
 
 
 def encode_plane_with(step, src, dc_step: int, ac_step: int, *, n: int, depth: int,
                       lossless: bool, speed: int = 6, search: tuple = (None, None)):
-    """``encode_plane`` with ``step`` for each diagonal:
-    ``wavefront.encode_step``, or ``wavefront.encode_step_reference`` to
-    run the plain version on any device."""
-    src, squeeze = _as_planes(src, 2)
-    src = src.to(_I32)
-    p, hp, wp = src.shape
-    dev = src.device
-    rb, cb = hp // n, wp // n
+    """``encode_plane`` with ``step`` for each diagonal, on the JAX
+    package's double-buffered wavefront carry:
+    ``wavefront.encode_step_reference`` runs the plain per-diagonal
+    version on any device (the card's comparisons use it)."""
+    src_blocks, outs, cfg, squeeze = _encode_setup(src, dc_step, ac_step, n, depth, lossless,
+                                                   speed, search)
+    p, rb, cb = src_blocks.shape[:3]
     mid = 1 << (depth - 1)
+    # The carry is double-buffered: diagonal d reads one and writes the other.
+    carries = (init_carry(p, rb, n, mid, src_blocks.device), init_carry(p, rb, n, mid, src_blocks.device))
+    for d in range(rb + cb - 1):
+        step(src_blocks, carries[d % 2], carries[1 - d % 2], outs, d, cfg)
+    return _encode_results(outs, squeeze)
+
+
+def search_config(n: int, depth: int, lossless: bool, dc_step: int, ac_step: int, speed: int = 6,
+                  search: tuple = (None, None)) -> wavefront.StepConfig:
+    """The mode × transform search that ``encode_plane`` runs."""
     txs = (WHT_WHT,) if lossless else tx_search_set(speed, n, search[1])
-    cfg = wavefront.StepConfig(
+    return wavefront.StepConfig(
         n=n, depth=depth, lossless=lossless, dc_step=int(dc_step), ac_step=int(ac_step),
         mode_set=tuple(range(N_MODES)) if lossless else mode_search_set(speed, search[0]),
         txs=txs, tx_syms=tuple(TX_SET_ALL.index(t) if t in TX_SET_ALL else 0 for t in txs),
     )
 
+
+def _encode_setup(src, dc_step, ac_step, n, depth, lossless, speed, search):
+    """(src_blocks (P, Rb, Cb, n, n), the four empty outputs, the search's
+    StepConfig, whether src had no plane axis)."""
+    src, squeeze = _as_planes(src, 2)
+    src = src.to(_I32)
+    p, hp, wp = src.shape
+    dev = src.device
+    rb, cb = hp // n, wp // n
+    cfg = search_config(n, depth, lossless, dc_step, ac_step, speed, search)
     src_blocks = src.reshape(p, rb, n, cb, n).permute(0, 1, 3, 2, 4).contiguous()  # (P,Rb,Cb,n,n)
     outs = (
         torch.empty((p, rb, cb), dtype=_I32, device=dev),
@@ -246,11 +271,13 @@ def encode_plane_with(step, src, dc_step: int, ac_step: int, *, n: int, depth: i
         torch.empty((p, rb, cb, n, n), dtype=_I32, device=dev),
         torch.empty((p, rb, cb, n, n), dtype=_I32, device=dev),
     )
-    # The carry is double-buffered: diagonal d reads one and writes the other.
-    carries = (init_carry(p, rb, n, mid, dev), init_carry(p, rb, n, mid, dev))
-    for d in range(rb + cb - 1):
-        step(src_blocks, carries[d % 2], carries[1 - d % 2], outs, d, cfg)
+    return src_blocks, outs, cfg, squeeze
+
+
+def _encode_results(outs, squeeze: bool):
+    """``outs`` as ``encode_plane`` returns them."""
     modes, tx_types, levels, rec_blocks = outs
+    _, rb, cb, n, _ = rec_blocks.shape
     recon = _blocks_to_plane(rec_blocks, rb, cb, n)
     if squeeze:
         return modes[0], levels[0], recon[0], tx_types[0]

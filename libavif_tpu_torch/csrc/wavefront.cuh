@@ -1,0 +1,154 @@
+// The persistent-wavefront scaffold of the port's wavefront kernels:
+// per-lane progress counters, the neighbour fetch from the reconstruction
+// written so far, and the intra predictor (ops/intra.py).
+//
+// A wavefront kernel walks a (P, Rb, Cb) grid of n x n blocks. A lane is
+// one block row of one plane, flattened as plane * Rb + r; a CTA encodes
+// its lanes left to right, and progress[lane] counts the blocks of the
+// lane whose outputs are written. Block (r, c) needs the reconstruction of
+// (r - 1, c) above it, (r, c - 1) to its left (the same lane, done by the
+// same CTA) and (r - 2, c) for its corner, which is done before (r - 1, c)
+// publishes.
+//
+// Ordering. The writer's threads store the block's outputs, meet at a
+// __syncthreads, and thread 0 fences and stores c + 1 with release
+// semantics. The reader's thread 0 spins with acquire loads, then its
+// warp meets at __syncwarp before reading the neighbours. The
+// reconstruction is written during the kernel, so it is read with
+// ld.global.cg (L2), never through __ldg, `const __restrict__` or another
+// ld.global.nc path, which may return stale lines.
+
+#pragma once
+
+#include <stdint.h>
+
+namespace avt {
+
+// How long a CTA waits for the lane above before it reports a hang. A
+// whole lane's pass takes milliseconds, so only a fault in the counters
+// reaches it.
+constexpr unsigned long long kWaitBudgetNs = 4000000000ull;
+
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_release(int* p, int v) {
+  asm volatile("st.release.gpu.b32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Thread 0 of a CTA: wait until progress[lane] >= count. Past the budget,
+// write `who` to *error and trap, so that the launch fails instead of
+// hanging.
+__device__ __forceinline__ void wait_progress(const int* progress, int lane, int count, int* error,
+                                              int who) {
+  if (load_acquire(progress + lane) >= count) return;
+  const unsigned long long t0 = global_ns();
+  for (unsigned polls = 1;; ++polls) {
+    if (load_acquire(progress + lane) >= count) return;
+    if ((polls & 1023u) == 0 && global_ns() - t0 > kWaitBudgetNs) {
+      atomicExch(error, who);
+      __threadfence();
+      __trap();
+    }
+  }
+}
+
+// Thread 0 of a CTA, after a __syncthreads that follows every output
+// store of the block: publish that the lane's first `count` blocks are
+// written.
+__device__ __forceinline__ void publish_progress(int* progress, int lane, int count) {
+  __threadfence();
+  store_release(progress + lane, count);
+}
+
+// Warp 0 of a CTA (every one of its 32 threads; tid is the thread's
+// index): the neighbours of block (r, c) of `lane` from `recon`
+// ((P * Rb, Cb, N, N)), as ops/wavefront.neighbors_from_outputs gives
+// them: the top row into s_top, the left column into s_left, and into
+// s_edge the corner and the DC predictor's value. `mid` stands for the
+// top when r = 0, for the left and the corner when c = 0, and for the
+// corner when r < 2. The caller has waited for (r - 1, c).
+template <int N>
+__device__ __forceinline__ void fetch_neighbors(const int32_t* recon, int lane, int r, int c,
+                                                int cb, int32_t mid, int32_t* s_top,
+                                                int32_t* s_left, int32_t* s_edge, int tid) {
+  constexpr int E = N * N;
+  constexpr int kLog2 = N == 4 ? 2 : N == 8 ? 3 : N == 16 ? 4 : 5;
+  const long long blk = (long long)lane * cb + c;
+  int32_t top = mid, left = mid;
+  if (tid < N) {
+    if (r > 0) top = __ldcg(recon + (blk - cb) * E + (N - 1) * N + tid);
+    if (c > 0) left = __ldcg(recon + (blk - 1) * E + tid * N + N - 1);
+    s_top[tid] = top;
+    s_left[tid] = left;
+  }
+  int sum = tid < N ? top + left : 0;  // at most 64 x 65535: no overflow
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (tid == 0) {
+    s_edge[0] = (r >= 2 && c > 0) ? __ldcg(recon + (blk - 2 * cb) * E + E - 1) : mid;
+    s_edge[1] = (sum + N) >> (kLog2 + 1);
+  }
+}
+
+// Edge sample q of [topleft, edge[0..n-1], edge[n-1] repeated n times].
+template <int N>
+__device__ __forceinline__ int32_t extended(const int32_t* edge, int32_t tl, int q) {
+  return q == 0 ? tl : edge[min(q - 1, N - 1)];
+}
+
+// Prediction of element (i, j) in intra mode `mode` (ops/intra.py). top,
+// left, dir and weights are in shared memory; dir holds, for modes
+// D45..D203 (3..8), one word per element: use_top | idx << 1 | frac << 8.
+template <int N>
+__device__ __forceinline__ int32_t predict(int mode, int i, int j, const int32_t* top,
+                                           const int32_t* left, int32_t tl, int32_t dc,
+                                           const int32_t* dir, const int32_t* weights) {
+  switch (mode) {
+    case 0:  // DC
+      return dc;
+    case 1:  // V
+      return top[j];
+    case 2:  // H
+      return left[i];
+    case 9: {  // SMOOTH
+      const int32_t wi = weights[i], wj = weights[j];
+      const int32_t acc = wi * top[j] + (256 - wi) * left[N - 1] + wj * left[i] + (256 - wj) * top[N - 1];
+      return (acc + 256) >> 9;
+    }
+    case 10: {  // SMOOTH_V
+      const int32_t wi = weights[i];
+      return (wi * top[j] + (256 - wi) * left[N - 1] + 128) >> 8;
+    }
+    case 11: {  // SMOOTH_H
+      const int32_t wj = weights[j];
+      return (wj * left[i] + (256 - wj) * top[N - 1] + 128) >> 8;
+    }
+    case 12: {  // PAETH, with the tie order of intra.py:paeth_pred
+      const int32_t t = top[j], l = left[i];
+      const int32_t base = t + l - tl;
+      const int32_t pt = abs(base - t), pl = abs(base - l), ptl = abs(base - tl);
+      if (pl <= pt && pl <= ptl) return l;
+      return pt <= ptl ? t : tl;
+    }
+    default: {  // D45..D203: interpolate along the angle (tables.dir_tables)
+      const int32_t packed = dir[(mode - 3) * N * N + i * N + j];
+      const int idx = (packed >> 1) & 0x7f, frac = packed >> 8;
+      const int32_t* edge = (packed & 1) ? top : left;
+      const int32_t e0 = extended<N>(edge, tl, idx);
+      const int32_t e1 = extended<N>(edge, tl, min(idx + 1, 2 * N));
+      return (e0 * (32 - frac) + e1 * frac + 16) >> 5;
+    }
+  }
+}
+
+}  // namespace avt

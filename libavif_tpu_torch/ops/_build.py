@@ -110,8 +110,10 @@ def load() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p,
         ]
-        lib.avt_encode_step.restype = ctypes.c_int
-        lib.avt_encode_step.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 13
+        lib.avt_encode_wavefront.restype = ctypes.c_int
+        lib.avt_encode_wavefront.argtypes = [ctypes.c_void_p] * 9
+        lib.avt_encode_wavefront_capacity.restype = ctypes.c_int
+        lib.avt_encode_wavefront_capacity.argtypes = [ctypes.c_int, ctypes.c_int]
         _lib = lib
         return _lib
 

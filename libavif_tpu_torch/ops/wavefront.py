@@ -1,26 +1,30 @@
-"""K2, the own-format encoder's wavefront step, and its plain PyTorch version.
+"""K2, the own-format encoder's wavefront, and its plain PyTorch versions.
 
-One call encodes one anti-diagonal ``d`` of the block grid for every plane
-of a same-geometry group: lane ``r`` is block ``(r, d - r)``. For each
-lane it predicts the searched intra modes from the carried neighbours,
-and for each searched transform it runs the forward transform, the
-deadzone quantizer, the dequantizer and the inverse; it keeps the
-(mode, transform) pair of least ``SSE + lam * rate`` (first index on
-ties) and writes the winner's mode and transform symbols, levels and
-reconstruction into the ``(P, Rb, Cb, ...)`` outputs at ``(r, d - r)``,
-and the new wavefront carry into ``carry_out``.
+``encode_wavefront`` encodes every block of every plane of a
+same-geometry group in one kernel launch. Blocks are visited in
+anti-diagonal order: block ``(r, c)`` needs the reconstruction of
+``(r - 1, c)`` above it and ``(r, c - 1)`` to its left. For each block it
+predicts the searched intra modes from those neighbours, and for each
+searched transform it runs the forward transform, the deadzone
+quantizer, the dequantizer and the inverse; it keeps the (mode,
+transform) pair of least ``SSE + lam * rate`` (first index on ties) and
+writes the winner's mode and transform symbols, levels and
+reconstruction into the ``(P, Rb, Cb, ...)`` outputs.
 
-It replaces the body of the JAX package's ``lax.scan`` in
+It replaces the JAX package's ``lax.scan`` in
 ``libavif_tpu/codec/recon.py:284-337`` (an XLA program, no Pallas), with
 K1's transform (``libavif_tpu/ops/pallas_kernels.py:84``) inside it.
-Source: ``libavif_tpu_torch/csrc/encode_step.cu``. A diagonal of 32
-16×16 luma blocks at speed 6 does about 6.8 M int32 multiply-adds in
-its transforms, so the card's integer rate bounds it; one launch per
-diagonal replaces about 290 small PyTorch launches of the plain version.
+Source: ``libavif_tpu_torch/csrc/encode_wavefront.cu``, one persistent
+cooperative launch per plane group; the note there gives its bounds.
 
 A CUDA tensor launches the kernel, or the call raises. A CPU tensor takes
-``encode_step_reference``, the plain version, which the CPU tests hold
-against the JAX package. ``encode_step.launches`` counts kernel launches.
+``encode_wavefront_reference``, the plain version, which reads each
+block's neighbours back from the outputs written so far
+(``neighbors_from_outputs``). ``encode_step_reference`` is the plain
+version of one diagonal with the JAX package's carried wavefront state;
+``recon.encode_plane_with`` drives it, and the CPU tests hold both
+against the JAX package. ``encode_wavefront.launches`` counts kernel
+launches.
 """
 
 from __future__ import annotations
@@ -44,7 +48,7 @@ MAX_TX = 5
 
 @dataclasses.dataclass(frozen=True)
 class StepConfig:
-    """What one encode step needs besides its tensors."""
+    """What the encode search needs besides its tensors."""
 
     n: int
     depth: int
@@ -82,6 +86,30 @@ def wavefront_neighbors(carry, c_arr: torch.Tensor, mid: int):
     first_col = (c_arr == 0)[None, :]
     left = torch.where(first_col[..., None], mid, rights)
     topleft = torch.where(first_col, mid, topleft)
+    return top, left, topleft
+
+
+def neighbors_from_outputs(recon: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor, mid: int):
+    """The neighbours of blocks ``(rows[k], cols[k])`` of every plane, read
+    from the reconstruction written so far (``recon`` (P, Rb, Cb, n, n)),
+    exactly as ``wavefront_neighbors`` gives them from the carry:
+
+      top     = bottom row of (r - 1, c)
+      left    = right column of (r, c - 1)
+      topleft = bottom-right pixel of (r - 2, c), the pixel the rolled
+                ``toplasts`` carry holds
+
+    with ``mid`` for the top when r = 0, for the left and the corner when
+    c = 0, and for the corner when r < 2. Returns top (P, L, n), left
+    (P, L, n) and topleft (P, L)."""
+    bottoms = recon[:, :, :, -1, :]  # (P, Rb, Cb, n)
+    rights = recon[..., -1]  # (P, Rb, Cb, n)
+    top = bottoms[:, (rows - 1).clamp(min=0), cols]
+    left = rights[:, rows, (cols - 1).clamp(min=0)]
+    topleft = bottoms[:, (rows - 2).clamp(min=0), cols, -1]
+    top = torch.where((rows >= 1)[None, :, None], top, mid)
+    left = torch.where((cols >= 1)[None, :, None], left, mid)
+    topleft = torch.where(((rows >= 2) & (cols >= 1))[None, :], topleft, mid)
     return top, left, topleft
 
 
@@ -135,68 +163,50 @@ def steps_mat(n: int, dc_step: int, ac_step: int, device) -> torch.Tensor:
     return steps
 
 
-def _check(src_blocks, carry_in, carry_out, outs, d: int, cfg: StepConfig):
+def _check(src_blocks, outs, cfg: StepConfig):
     if cfg.n not in TX_SIZES:
-        raise ValueError(f"encode_step: block size {cfg.n} not in {TX_SIZES}")
+        raise ValueError(f"encode_wavefront: block size {cfg.n} not in {TX_SIZES}")
     if src_blocks.dim() != 5 or src_blocks.shape[-2:] != (cfg.n, cfg.n):
-        raise ValueError(f"encode_step: src_blocks must be (P, Rb, Cb, {cfg.n}, {cfg.n}), "
+        raise ValueError(f"encode_wavefront: src_blocks must be (P, Rb, Cb, {cfg.n}, {cfg.n}), "
                          f"got {tuple(src_blocks.shape)}")
     p, rb, cb = src_blocks.shape[:3]
     n = cfg.n
-    named = [("carry_in", carry_in, ((p, rb, n), (p, rb, n), (p, rb))),
-             ("carry_out", carry_out, ((p, rb, n), (p, rb, n), (p, rb))),
-             ("outs", outs, ((p, rb, cb), (p, rb, cb), (p, rb, cb, n, n), (p, rb, cb, n, n)))]
-    for name, group, shapes in named:
-        got = tuple(tuple(t.shape) for t in group)
-        if got != shapes:
-            raise ValueError(f"encode_step: {name} must be shaped {shapes}, got {got}")
-    tensors = [src_blocks, *carry_in, *carry_out, *outs]
+    shapes = ((p, rb, cb), (p, rb, cb), (p, rb, cb, n, n), (p, rb, cb, n, n))
+    got = tuple(tuple(t.shape) for t in outs)
+    if got != shapes:
+        raise ValueError(f"encode_wavefront: outs must be shaped {shapes}, got {got}")
+    tensors = [src_blocks, *outs]
     if any(t.dtype != _I32 for t in tensors):
-        raise TypeError("encode_step takes int32 tensors")
+        raise TypeError("encode_wavefront takes int32 tensors")
     if any(t.device != src_blocks.device for t in tensors):
-        raise ValueError("encode_step: every tensor must be on one device")
+        raise ValueError("encode_wavefront: every tensor must be on one device")
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("encode_step takes contiguous tensors")
+        raise ValueError("encode_wavefront takes contiguous tensors")
     if src_blocks.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"encode_step runs on cuda or cpu, not {src_blocks.device}")
-    if not 0 <= d < rb + cb - 1:
-        raise ValueError(f"encode_step: diagonal {d} outside 0..{rb + cb - 2}")
+        raise ValueError(f"encode_wavefront runs on cuda or cpu, not {src_blocks.device}")
     if not (1 <= len(cfg.mode_set) <= N_MODES and 1 <= len(cfg.txs) <= MAX_TX
             and len(cfg.tx_syms) == len(cfg.txs)):
-        raise ValueError("encode_step: mode or transform search set out of range")
+        raise ValueError("encode_wavefront: mode or transform search set out of range")
     if cfg.lossless != (cfg.txs == (WHT_WHT,)):
-        raise ValueError("encode_step: lossless searches exactly the Walsh-Hadamard transform")
+        raise ValueError("encode_wavefront: lossless searches exactly the Walsh-Hadamard transform")
 
 
-def encode_step_reference(src_blocks, carry_in, carry_out, outs, d: int, cfg: StepConfig) -> None:
-    """Plain PyTorch version of K2: the loop body of the wavefront encoder
-    on every lane of diagonal ``d`` (lanes off the plane compute on
-    clipped columns, and only their carry is kept)."""
+def _search(sb, top, left, topleft, cfg: StepConfig):
+    """The RD search of each block of a batch: sb (B, n, n), top and left
+    (B, n), topleft (B,). Returns the winner's mode symbol (B,), transform
+    symbol (B,), levels and reconstruction (B, n, n)."""
     n = cfg.n
-    p, rb, cb = src_blocks.shape[:3]
-    dev = src_blocks.device
+    dev = sb.device
     maxv = (1 << cfg.depth) - 1
-    mid = 1 << (cfg.depth - 1)
     dshift = cfg.depth - 8
     n_tx = len(cfg.txs)
     steps = steps_mat(n, cfg.dc_step, cfg.ac_step, dev)
     bias = steps * 3 // 8  # deadzone: AC rounds with a 3/8 bias toward zero
     bias[0, 0] = steps[0, 0] // 2  # DC keeps round-half
-    lam = cfg.lam
-    mode_idx = const(cfg.mode_set, torch.int64, dev)
-    sym_table = const(cfg.tx_syms, _I32, dev)
-    mode_table = const(cfg.mode_set, _I32, dev)
-    lanes = torch.arange(rb, device=dev)
-    c_arr = (d - lanes).clamp(0, cb - 1)
-
-    sb = src_blocks[:, lanes, c_arr].reshape(-1, n, n)  # (P*L, n, n)
-    top, left, topleft = wavefront_neighbors(carry_in, c_arr, mid)
-    preds = predict_all_modes(
-        top.reshape(-1, n), left.reshape(-1, n), topleft.reshape(-1), n
-    )  # (P*L, 13, n, n)
+    preds = predict_all_modes(top, left, topleft, n)  # (B, 13, n, n)
     if len(cfg.mode_set) < N_MODES:
-        preds = preds[:, mode_idx]
-    resid = sb[:, None] - preds  # (P*L, M, n, n)
+        preds = preds[:, const(cfg.mode_set, torch.int64, dev)]
+    resid = sb[:, None] - preds  # (B, M, n, n)
     rflat = resid.reshape(-1, n, n)
 
     lv_c, cand_c = [], []
@@ -212,20 +222,39 @@ def encode_step_reference(src_blocks, carry_in, carry_out, outs, d: int, cfg: St
         res_hat = inverse_transform(deq, t, n).reshape(resid.shape)
         lv_c.append(lv_t.reshape(resid.shape))
         cand_c.append((preds + res_hat).clamp(0, maxv))
-    lv = torch.stack(lv_c, dim=2)  # (P*L, M, T, n, n)
+    lv = torch.stack(lv_c, dim=2)  # (B, M, T, n, n)
     cand = torch.stack(cand_c, dim=2)
 
     err = sb[:, None, None] - cand
     if dshift:
         err = err >> dshift
-    sse = (err * err).sum(dim=(-1, -2))  # (P*L, M, T)
-    bits = _rate_bits(lv)
-    cost = (sse + lam * bits).reshape(sse.shape[0], -1)  # (P*L, M*T)
+    sse = (err * err).sum(dim=(-1, -2))  # (B, M, T)
+    cost = (sse + cfg.lam * _rate_bits(lv)).reshape(sse.shape[0], -1)  # (B, M*T)
     best = first_argmin(cost)
 
     sel = best.reshape(-1, 1, 1, 1).expand(-1, 1, n, n)
     best_lv = torch.gather(lv.reshape(lv.shape[0], -1, n, n), 1, sel)[:, 0]
     best_rec = torch.gather(cand.reshape(cand.shape[0], -1, n, n), 1, sel)[:, 0]
+    mode_sym = const(cfg.mode_set, _I32, dev)[best // n_tx]
+    tx_sym = const(cfg.tx_syms, _I32, dev)[best % n_tx]
+    return mode_sym, tx_sym, best_lv, best_rec
+
+
+def encode_step_reference(src_blocks, carry_in, carry_out, outs, d: int, cfg: StepConfig) -> None:
+    """Plain PyTorch version of one diagonal ``d``, the loop body of the
+    JAX package's wavefront encoder on every lane (lanes off the plane
+    compute on clipped columns, and only their carry is kept): reads the
+    carry (bottoms (P, Rb, n), rights (P, Rb, n), toplasts (P, Rb)) from
+    ``carry_in``, writes it to ``carry_out``, and writes the diagonal's
+    blocks into ``outs``."""
+    n = cfg.n
+    p, rb, cb = src_blocks.shape[:3]
+    lanes = torch.arange(rb, device=src_blocks.device)
+    c_arr = (d - lanes).clamp(0, cb - 1)
+    top, left, topleft = wavefront_neighbors(carry_in, c_arr, 1 << (cfg.depth - 1))
+    mode_sym, tx_sym, best_lv, best_rec = _search(
+        src_blocks[:, lanes, c_arr].reshape(-1, n, n), top.reshape(-1, n), left.reshape(-1, n),
+        topleft.reshape(-1), cfg)
     best_rec = best_rec.reshape(p, rb, n, n)
 
     for buf, value in zip(carry_out, (best_rec[:, :, -1, :], best_rec[:, :, :, -1], top[:, :, -1])):
@@ -233,10 +262,37 @@ def encode_step_reference(src_blocks, carry_in, carry_out, outs, d: int, cfg: St
     on = (lanes <= d) & (d - lanes < cb)
     r_on, c_on = lanes[on], d - lanes[on]
     modes, txs, levels, recon = outs
-    modes[:, r_on, c_on] = mode_table[best // n_tx].reshape(p, rb)[:, on]
-    txs[:, r_on, c_on] = sym_table[best % n_tx].reshape(p, rb)[:, on]
+    modes[:, r_on, c_on] = mode_sym.reshape(p, rb)[:, on]
+    txs[:, r_on, c_on] = tx_sym.reshape(p, rb)[:, on]
     levels[:, r_on, c_on] = best_lv.reshape(p, rb, n, n)[:, on]
     recon[:, r_on, c_on] = best_rec[:, on]
+
+
+def encode_wavefront_reference(src_blocks, outs, cfg: StepConfig) -> None:
+    """Plain PyTorch version of K2: every diagonal of every plane in
+    ``src_blocks`` ((P, Rb, Cb, n, n) int32), in order, on the on-plane
+    blocks only, each block's neighbours read back from the
+    reconstruction written so far (``neighbors_from_outputs``). Writes
+    ``outs`` = (modes (P, Rb, Cb), tx_types (P, Rb, Cb), levels and
+    recon (P, Rb, Cb, n, n))."""
+    n = cfg.n
+    p, rb, cb = src_blocks.shape[:3]
+    if p == 0:
+        return
+    mid = 1 << (cfg.depth - 1)
+    modes, txs, levels, recon = outs
+    for d in range(rb + cb - 1):
+        rows = torch.arange(max(0, d - cb + 1), min(rb - 1, d) + 1, device=src_blocks.device)
+        cols = d - rows
+        top, left, topleft = neighbors_from_outputs(recon, rows, cols, mid)
+        mode_sym, tx_sym, best_lv, best_rec = _search(
+            src_blocks[:, rows, cols].reshape(-1, n, n), top.reshape(-1, n), left.reshape(-1, n),
+            topleft.reshape(-1), cfg)
+        lanes = rows.numel()
+        modes[:, rows, cols] = mode_sym.reshape(p, lanes)
+        txs[:, rows, cols] = tx_sym.reshape(p, lanes)
+        levels[:, rows, cols] = best_lv.reshape(p, lanes, n, n)
+        recon[:, rows, cols] = best_rec.reshape(p, lanes, n, n)
 
 
 # ------------------------------------------------------------------ the kernel
@@ -265,7 +321,7 @@ def _tables_on(n: int, txs: tuple, device: str) -> torch.Tensor:
 
 
 class _StepParams(ctypes.Structure):
-    """Mirror of ``StepParams`` in ``csrc/encode_step.cu``."""
+    """Mirror of ``StepParams`` in ``csrc/encode_wavefront.cu``."""
 
     _fields_ = [
         ("p", ctypes.c_int), ("rb", ctypes.c_int), ("cb", ctypes.c_int),
@@ -288,34 +344,45 @@ def _params(cfg: StepConfig, p: int, rb: int, cb: int) -> _StepParams:
     return s
 
 
-def encode_step(src_blocks, carry_in, carry_out, outs, d: int, cfg: StepConfig) -> None:
-    """K2 wrapper: encode diagonal ``d`` of every plane in ``src_blocks``
-    ((P, Rb, Cb, n, n) int32), reading the carry (bottoms (P, Rb, n),
-    rights (P, Rb, n), toplasts (P, Rb)) from ``carry_in`` and writing it
-    to ``carry_out``; ``outs`` = (modes (P, Rb, Cb), tx_types (P, Rb, Cb),
-    levels and recon (P, Rb, Cb, n, n)), written at the diagonal's
-    blocks. CUDA tensors launch the kernel on the current stream; CPU
-    tensors take the plain version."""
-    _check(src_blocks, carry_in, carry_out, outs, d, cfg)
+def resident_ctas(cfg: StepConfig, device) -> int:
+    """How many CTAs of the kernel for ``cfg`` the card holds at once: the
+    largest grid of a cooperative launch, which ``encode_wavefront`` caps
+    at the group's lane count."""
+    device = torch.device(device)
+    with _build.on_device(device):
+        got = _build.load().avt_encode_wavefront_capacity(cfg.n, len(cfg.txs))
+    if got <= 0:
+        raise RuntimeError(f"encode_wavefront: occupancy query failed: CUDA error {-got}")
+    return got
+
+
+def encode_wavefront(src_blocks, outs, cfg: StepConfig) -> None:
+    """K2 wrapper: encode every block of every plane in ``src_blocks``
+    ((P, Rb, Cb, n, n) int32) into ``outs`` = (modes (P, Rb, Cb),
+    tx_types (P, Rb, Cb), levels and recon (P, Rb, Cb, n, n)). CUDA
+    tensors take one cooperative launch on the current stream, with a
+    zeroed (P * Rb + 1) int32 buffer of per-lane progress counters and an
+    error word; CPU tensors take the plain version."""
+    _check(src_blocks, outs, cfg)
     if src_blocks.device.type == "cpu":
-        encode_step_reference(src_blocks, carry_in, carry_out, outs, d, cfg)
+        encode_wavefront_reference(src_blocks, outs, cfg)
         return
     p, rb, cb = src_blocks.shape[:3]
     if p == 0:
         return
     dev = src_blocks.device
     table = _tables_on(cfg.n, cfg.txs, str(dev))
-    params = _params(cfg, p, rb, cb)
+    progress = torch.zeros(p * rb + 1, dtype=_I32, device=dev)
     lib = _build.load()
     with _build.on_device(dev):
-        rc = lib.avt_encode_step(
-            ctypes.byref(params), d, src_blocks.data_ptr(),
-            *(t.data_ptr() for t in carry_in), *(t.data_ptr() for t in carry_out),
-            *(t.data_ptr() for t in outs), table.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        rc = lib.avt_encode_wavefront(
+            ctypes.byref(_params(cfg, p, rb, cb)), src_blocks.data_ptr(),
+            *(t.data_ptr() for t in outs), progress.data_ptr(), table.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
-        raise RuntimeError(f"encode_step launch failed: CUDA error {rc}")
-    encode_step.launches += 1
+        raise RuntimeError(f"encode_wavefront launch failed: CUDA error {rc}")
+    encode_wavefront.launches += 1
 
 
-encode_step.launches = 0
+encode_wavefront.launches = 0

@@ -1,4 +1,4 @@
-"""Tests that need an NVIDIA GPU: K1, K2 (the encode wavefront step), the
+"""Tests that need an NVIDIA GPU: K1, K2 (the encode wavefront), the
 own-format path, the spec path's RD pre-pass, the pixel pipeline and animations on the card, each
 held against the port's own plain PyTorch path on the CPU.
 
@@ -92,28 +92,65 @@ _STEP_CONFIGS = [
     (12, False, 6, 32, (40, 70), (None, None)),
     (10, True, 6, 32, (64, 64), (None, None)),
     (8, False, 0, 16, (32, 48), (13, 5)),
+    (8, False, 6, 16, (16, 80), (None, None)),
+    (10, False, 0, 8, (40, 8), (None, None)),
 ]
+
+
+def _step_planes(depth, n, shape, p=2):
+    rng = np.random.default_rng(depth * 31 + n)
+    maxv = (1 << depth) - 1
+    yy, xx = np.mgrid[0:shape[0], 0:shape[1]]
+    planes = [np.clip((yy * 7 + xx * 3 + 5 * k) * (maxv // 255) + rng.integers(0, (maxv + 1) // 8, shape),
+                      0, maxv) for k in range(p)]
+    return torch.from_numpy(np.stack([recon.pad_to_blocks(q, n) for q in planes]).astype(np.int32))
+
+
+def _assert_kernel_equals_plain(src, dc, ac, **kw):
+    """One K2 launch per encode_plane call, equal to the plain per-diagonal loop."""
+    plain = recon.encode_plane_with(wavefront.encode_step_reference, src, dc, ac, **kw)
+    before = wavefront.encode_wavefront.launches
+    kernel = recon.encode_plane(src, dc, ac, **kw)
+    torch.cuda.synchronize()
+    assert wavefront.encode_wavefront.launches - before == 1  # one per plane group
+    for name, a, b in zip(("modes", "levels", "recon", "tx_types"), kernel, plain):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("depth,lossless,speed,n,shape,search", _STEP_CONFIGS)
 def test_encode_step_kernel_matches_plain_version(cuda, depth, lossless, speed, n, shape, search):
-    rng = np.random.default_rng(depth * 31 + n)
-    maxv = (1 << depth) - 1
-    yy, xx = np.mgrid[0:shape[0], 0:shape[1]]
-    planes = [np.clip((yy * 7 + xx * 3 + 5 * k) * (maxv // 255) + rng.integers(0, (maxv + 1) // 8, shape),
-                      0, maxv) for k in range(2)]
-    src = torch.from_numpy(np.stack([recon.pad_to_blocks(p, n) for p in planes]).astype(np.int32))
+    src = _step_planes(depth, n, shape).to(cuda)
     dc, ac = (1, 1) if lossless else tables.step_sizes(150, depth)
-    kw = dict(n=n, depth=depth, lossless=lossless, speed=speed, search=search)
-    plain = recon.encode_plane_with(wavefront.encode_step_reference, src.to(cuda), dc, ac, **kw)
-    before = wavefront.encode_step.launches
-    kernel = recon.encode_plane(src.to(cuda), dc, ac, **kw)
+    _assert_kernel_equals_plain(src, dc, ac, n=n, depth=depth, lossless=lossless, speed=speed,
+                                search=search)
+
+
+@pytest.mark.cuda
+def test_wavefront_kernel_with_more_lanes_than_its_grid(cuda):
+    """189 lanes of 16x16 blocks: more than the card holds CTAs at once, so
+    a CTA encodes several lanes one after another."""
+    src = _step_planes(8, 16, (3024, 512), p=1).to(cuda)
+    dc, ac = tables.step_sizes(150, 8)
+    assert src.shape[1] // 16 > wavefront.resident_ctas(recon.search_config(16, 8, False, dc, ac), cuda)
+    _assert_kernel_equals_plain(src, dc, ac, n=16, depth=8, lossless=False, speed=6)
+
+
+@pytest.mark.cuda
+def test_wavefront_kernel_twice_on_one_stream(cuda):
+    """Two launches back to back on the same stream, each with its own
+    zeroed progress counters, give the same planes as the plain loop."""
+    src = _step_planes(10, 8, (64, 96)).to(cuda)
+    dc, ac = tables.step_sizes(150, 10)
+    kw = dict(n=8, depth=10, lossless=False, speed=3)
+    before = wavefront.encode_wavefront.launches
+    first = recon.encode_plane(src, dc, ac, **kw)
+    second = recon.encode_plane(src, dc, ac, **kw)
     torch.cuda.synchronize()
-    rb, cb = src.shape[1] // n, src.shape[2] // n
-    assert wavefront.encode_step.launches - before == rb + cb - 1  # one per diagonal
-    for name, a, b in zip(("modes", "levels", "recon", "tx_types"), kernel, plain):
-        assert torch.equal(a, b), name
+    assert wavefront.encode_wavefront.launches - before == 2
+    plain = recon.encode_plane_with(wavefront.encode_step_reference, src, dc, ac, **kw)
+    for a, b, c in zip(first, second, plain):
+        assert torch.equal(a, c) and torch.equal(b, c)
 
 
 @pytest.mark.cuda
@@ -123,11 +160,11 @@ def test_encode_batch_bytes_on_card_equal_cpu(cuda):
     rng = np.random.default_rng(0)
     for p in img.yuv_planes:
         p[:] = rng.integers(0, 256, p.shape).astype(np.uint8)
-    before = (wavefront.encode_step.launches, cuda_kernels.transform_2d.launches)
+    before = (wavefront.encode_wavefront.launches, cuda_kernels.transform_2d.launches)
     on_card = api.encode_batch([img], quality=75, speed=6, codec="native", device=cuda)
-    # K2 on every diagonal of luma (3 + 5 - 1) and chroma (2 + 3 - 1); no K1 on encode
-    assert (wavefront.encode_step.launches - before[0], cuda_kernels.transform_2d.launches) == (
-        7 + 4, before[1])
+    # one K2 launch for luma and one for the chroma pair; no K1 on encode
+    assert (wavefront.encode_wavefront.launches - before[0], cuda_kernels.transform_2d.launches) == (
+        2, before[1])
     assert on_card == api.encode_batch([img], quality=75, speed=6, codec="native", device="cpu")
     a = api.decode(on_card[0], device=cuda)
     b = api.decode(on_card[0], device="cpu")
@@ -256,9 +293,9 @@ def _animate(frames, dev, **settings):
 @pytest.mark.cuda
 def test_own_format_animation_on_card_equal_cpu(cuda):
     frames = _pan(4, 96, 64)
-    before = (wavefront.encode_step.launches, cuda_kernels.transform_2d.launches)
+    before = (wavefront.encode_wavefront.launches, cuda_kernels.transform_2d.launches)
     on_card = _animate(frames, cuda, codec_choice="native", quality=75)
-    assert wavefront.encode_step.launches > before[0]
+    assert wavefront.encode_wavefront.launches - before[0] == 2 * len(frames)
     assert cuda_kernels.transform_2d.launches == before[1]
     assert on_card == _animate(frames, "cpu", codec_choice="native", quality=75)
     decoded = []
