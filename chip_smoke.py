@@ -6,13 +6,14 @@ Phases, each printed as it runs; any failure ends the run non-zero:
 
   1. device: the card's name and power limit, torch and CUDA versions;
      exits non-zero when no CUDA device is available;
-  2. build: K1 (libavif_tpu_torch/csrc/transform2d.cu) and K2
-     (csrc/encode_wavefront.cu) from the sources, one nvcc per source, in
-     parallel;
+  2. build: K1 (libavif_tpu_torch/csrc/transform2d.cu), K2
+     (csrc/encode_wavefront.cu) and K3 (csrc/decode_wavefront.cu) from the
+     sources, one nvcc per source, in parallel;
   3. K1 on the card against its plain PyTorch version, every transform
      type and size, forward and inverse, with inputs that wrap int32;
-     both timed at the decode path's shape (1536 blocks of 16x16,
-     inverse), the kernel also device-only from torch.profiler;
+     both timed at a 768x512 luma plane's shape (1536 blocks of 16x16,
+     inverse; K1's decode launch before K3 took it in), the kernel also
+     device-only from torch.profiler;
  3b. K2, the encode wavefront (one persistent launch per plane group),
      on the card against the plain per-diagonal loop (torch.equal) for n
      in {4, 8, 16, 32}, depths 8/10/12, speeds 0/3/6/9 and lossless, a
@@ -21,6 +22,15 @@ Phases, each printed as it runs; any failure ends the run non-zero:
      main path's shapes (768x512 luma, P = 1; the 384x256 chroma pair,
      P = 2), CUDA events around the call, the kernel also device-only
      from torch.profiler, against the throughput and the chain bound;
+ 3c. K3, the decode wavefront (one persistent launch per plane group,
+     K1's inverse inside it for each block's signalled type), on the card
+     against its plain version (torch.equal) in phase 3b's configurations
+     with the encoder's and with random symbols, hostile symbols, and a
+     plane with more lanes than the cooperative grid; timed per
+     plane-group launch at 768x512 (luma; the chroma pair), device-only
+     from torch.profiler and as a call with CUDA events, with the plain
+     version's time, and per block on a plane one block high and one one
+     block wide (the chain link's cost, which gives the chain bound);
   4. own-format path: 8 frames of 768x512 4:2:0 8-bit through
      libavif_tpu_torch.api.encode_batch(quality=75, speed=6,
      codec="native"): K2 launches 8 x 2 (luma, chroma pair), none of K1;
@@ -29,8 +39,10 @@ Phases, each printed as it runs; any failure ends the run non-zero:
   5. the same first frame encoded on the CPU (plain versions): the .avif
      bytes must be identical;
   6. round trip: decode on the card, equal to the CPU decode; Y-PSNR;
-     the 8 files decoded on the card, counting K1 launches (one per
-     transform type per plane group);
+     the 8 files decoded on the card: K3 launches 8 x 2, none of K1;
+     the same under torch.profiler (device busy share, K3 per launch, the
+     top device entries), and its host entropy decoding and device stage
+     timed alone;
   7. RD tables: frame 0's luma plane through the spec encoder's RD
      pre-pass on the card and on the CPU; satd/delta equal (torch.equal),
      dist/rate within the CPU test's tolerance, the count of qcost
@@ -71,10 +83,12 @@ Phases, each printed as it runs; any failure ends the run non-zero:
      to the sequential decode;
  14. own-format animation: the same frames with codec_choice="native":
      K2 launches 8 x 2 and no K1 launch, bytes equal to the CPU
-     port's, read_all on the card equal to the CPU decode;
+     port's, read_all on the card (K3 launches 8 x 2) equal to the CPU
+     decode;
  15. grid: 2x2 cells of 768x512 (1536x1024) with both codecs: 4 RD runs
-     on the card for the spec cells, the own-format cells through K2;
-     the grid decode equals the cells decoded one by one;
+     on the card for the spec cells, the own-format cells through K2 and
+     decoded through K3 (4 x 2 launches); the grid decode equals the
+     cells decoded one by one;
  16. still variants at 768x512 on the card, read back by
      Decoder(device=card): write_progressive([50, 75]) with both layers
      decoded, write_mini, a 16-bit 'sato' still (12b+4b recipe) and a
@@ -105,7 +119,7 @@ W, H = 768, 512
 QUALITY = 75
 SPEED = 6
 BATCH = 8
-K1_SHAPE = (1536, 16)  # (blocks, n) of one decode launch: a 768x512 luma plane
+K1_SHAPE = (1536, 16)  # (blocks, n) of a 768x512 luma plane, K1's decode launch before K3
 # Peak rates of one H100 SXM at 700 W: HBM bytes/s (NVIDIA's data sheet)
 # and int32 multiply-adds/s of the CUDA cores (132 SMs x 64 INT32 lanes x
 # 1.98 GHz boost clock), for the kernels' bounds.
@@ -351,6 +365,186 @@ def check_step(wavefront, recon, tables, dev, smi):
     return numbers
 
 
+def decode_bound_ms(p: int, rb: int, cb: int, n: int) -> tuple:
+    """(bound ms, 'operations' or 'bytes') of one K3 launch over a plane
+    group: the inverse transform's int32 multiply-adds (two passes of n^3
+    a block, the signalled type only) over the whole card's IMAD rate,
+    against the bytes (levels, mode and transform symbols read;
+    reconstruction and the per-lane progress counters written) over HBM."""
+    blocks = p * rb * cb
+    ops_ms = 2 * blocks * n**3 / IMAD_PER_S * 1e3
+    bytes_ms = 4 * (2 * blocks * n * n + 2 * blocks + p * rb) / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def random_symbols(seed: int, p: int, rb: int, cb: int, n: int, lossless: bool, dev):
+    """Sparse random levels, modes in [0, 12] and transform symbols in
+    [0, 4] of p planes, int32 on dev: every mode and type decoded."""
+    rng = np.random.default_rng(seed)
+    span = 1 << 12 if lossless else 24
+    levels = rng.integers(-span, span + 1, (p, rb, cb, n, n)) * (rng.random((p, rb, cb, n, n)) < 0.3)
+    modes = rng.integers(0, 13, (p, rb, cb))
+    txs = rng.integers(0, 5, (p, rb, cb))
+    return tuple(torch.from_numpy(a.astype(np.int32)).to(dev) for a in (levels, modes, txs))
+
+
+def check_decode(wavefront, recon, tables, dev, smi):
+    """Phase 3c: K3 against its plain version; timed per plane-group
+    launch at the main path's shapes. Returns the kernel line's numbers
+    for K3."""
+    worst, cases = 0, 0
+
+    def compare(levels, modes, txs, cfg, what):
+        nonlocal worst, cases
+        rec = torch.full(levels.shape, -1, dtype=torch.int32, device=dev)
+        before = wavefront.decode_wavefront.launches
+        wavefront.decode_wavefront(levels, modes, txs, rec, cfg)
+        torch.cuda.synchronize()
+        if wavefront.decode_wavefront.launches - before != 1:
+            raise AssertionError(f"K3: {wavefront.decode_wavefront.launches - before} launches for one plane group")
+        want = torch.full_like(rec, -1)
+        wavefront.decode_wavefront_reference(levels, modes, txs, want, cfg)
+        diff = int((rec.to(torch.int64) - want.to(torch.int64)).abs().max())
+        worst = max(worst, diff)
+        cases += 1
+        if not torch.equal(rec, want):
+            raise AssertionError(f"K3 differs from its plain version: {what}, max|diff| {diff}")
+
+    # phase 3b's configurations: the encoder's symbols, then random ones
+    for n, depth, lossless, speed, search, shape, p in step_configs():
+        src = seeded_planes(n * 7 + depth, depth, shape, n, p).to(dev)
+        dc, ac = (1, 1) if lossless else tables.step_sizes(150, depth)
+        cfg = wavefront.DecodeConfig(n, depth, lossless, int(dc), int(ac))
+        modes, levels, _, txs = recon.encode_plane(src, dc, ac, n=n, depth=depth, lossless=lossless,
+                                                   speed=speed, search=search)
+        what = f"n={n} depth={depth} lossless={lossless} speed={speed} search={search} {shape} P={p}"
+        compare(levels, modes, txs, cfg, f"encoded {what}")
+        compare(*random_symbols(n * 7 + depth, p, *modes.shape[1:], n, lossless, dev), cfg, f"random {what}")
+    # hostile symbols: levels of +-32768, transform symbols and modes out of range
+    rng = np.random.default_rng(3)
+    levels = torch.from_numpy(rng.integers(-32768, 32769, (1, 2, 2, 32, 32)).astype(np.int32)).to(dev)
+    modes = torch.tensor([[[-50, 3], [12, 200]]], dtype=torch.int32, device=dev)
+    txs = torch.tensor([[[-3, 2], [7, 1]]], dtype=torch.int32, device=dev)
+    dc, ac = tables.step_sizes(200, 12)
+    compare(levels, modes, txs, wavefront.DecodeConfig(32, 12, False, int(dc), int(ac)), "hostile n=32 depth=12")
+    # more lanes than the cooperative grid holds
+    dc, ac = tables.step_sizes(150, 8)  # q75
+    cfg = wavefront.DecodeConfig(16, 8, False, int(dc), int(ac))
+    grid = wavefront.decode_resident_ctas(cfg, dev)
+    compare(*random_symbols(7, 1, grid + 37, 2, 16, False, dev), cfg, f"{grid + 37} lanes")
+    photo_lanes = -(-PHOTO_H // 16)
+    print(f"[k3] {cases} cases equal to the plain version (torch.equal), one launch each: phase 3b's "
+          f"configurations with the encoder's and with random symbols, hostile symbols, {PHOTO_W}x{PHOTO_H} "
+          f"({photo_lanes} lanes), and {grid + 37} lanes on a cooperative grid of {grid} CTAs at n=16", flush=True)
+
+    numbers = {}
+    for name, (h, w), p in (("luma", (H, W), 1), ("chroma", (H // 2, W // 2), 2)):
+        src = seeded_planes(3, 8, (h, w), 16, p).to(dev)
+        modes, levels, _, txs = recon.encode_plane(src, dc, ac, n=16, depth=8, lossless=False, speed=SPEED)
+        rb, cb = h // 16, w // 16
+        out, plain_out = torch.empty_like(levels), torch.empty_like(levels)
+
+        def kernel():
+            wavefront.decode_wavefront(levels, modes, txs, out, cfg)
+
+        def plain():
+            wavefront.decode_wavefront_reference(levels, modes, txs, plain_out, cfg)
+
+        p1 = time_ms(plain, 2)
+        k1 = time_ms(kernel, 50)
+        k2 = time_ms(kernel, 50)
+        p2 = time_ms(plain, 2)
+        before = wavefront.decode_wavefront.launches
+        _, device = profile_device(kernel, 20)
+        dev_ms = kernel_ms(device, "decode_wavefront_kernel", wavefront.decode_wavefront.launches - before)
+        bound, bound_by = decode_bound_ms(p, rb, cb, 16)
+        numbers[name] = dict(ms=dev_ms, call_ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, bound_ms=bound,
+                             bound_by=bound_by, diagonals=rb + cb - 1)
+        print(f"[k3] {name} {w}x{h} P={p} n=16 q{QUALITY}: per launch (the whole plane group) kernel device "
+              f"{dev_ms if dev_ms is None else f'{dev_ms:.5f}'} ms (torch.profiler, 20 launches), call "
+              f"{(k1 + k2) / 2:.5f} ms (runs {k1:.5f}/{k2:.5f}), plain version {(p1 + p2) / 2:.5f} ms (runs "
+              f"{p1:.5f}/{p2:.5f}); throughput bound {bound:.6f} ms ({bound_by}); CUDA events, order plain, "
+              f"kernel, kernel, plain; on {smi}", flush=True)
+
+    # The chain link's cost: a plane one block high (one CTA walks its own
+    # lane and never waits) against one a block wide (every block waits
+    # for the lane above, on another SM).
+    per_block = {}
+    for name, (h, w) in (("row", (16, W)), ("column", (H, 16))):
+        src = seeded_planes(5, 8, (h, w), 16, 1).to(dev)
+        modes, levels, _, txs = recon.encode_plane(src, dc, ac, n=16, depth=8, lossless=False, speed=SPEED)
+        out = torch.empty_like(levels)
+        blocks = h // 16 * (w // 16)
+
+        def run():
+            wavefront.decode_wavefront(levels, modes, txs, out, cfg)
+
+        call = time_ms(run, 50) / blocks
+        before = wavefront.decode_wavefront.launches
+        _, device = profile_device(run, 20)
+        dev_ms = kernel_ms(device, "decode_wavefront_kernel", wavefront.decode_wavefront.launches - before)
+        per_block[name] = (call, None if dev_ms is None else dev_ms / blocks)
+    link = per_block["column"][1] if per_block["column"][1] is not None else per_block["column"][0]
+    for name in numbers:
+        numbers[name]["chain_bound_ms"] = numbers[name].pop("diagonals") * link
+        numbers[name]["max_abs_err"] = worst
+
+    def us(v):
+        return "not measured" if v is None else f"{v * 1e3:.3f} us"
+
+    print(f"[k3] per 16x16 block: {us(per_block['row'][1])} device, {us(per_block['row'][0])} call in a lane "
+          f"of {W // 16} (no wait); {us(per_block['column'][1])} device, {us(per_block['column'][0])} call in a "
+          f"column of {H // 16} (a wait on another SM at each block); chain bound = diagonals x the column's "
+          f"per-block device time: luma {numbers['luma']['chain_bound_ms']:.5f} ms, chroma pair "
+          f"{numbers['chroma']['chain_bound_ms']:.5f} ms; on {smi}", flush=True)
+    return numbers
+
+
+def decode_split(frame, recon, files, dev):
+    """Phase 6's decode in two stages timed alone: the host entropy
+    decoding of every file's tiles on the frame layer's thread pool, then
+    the device stage (upload, K3 and the filters on the card, fetch) for
+    every frame, all enqueued before the first fetch as the frame layer
+    does. Returns (entropy s, device s)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from libavif_tpu_torch.containers.parse import parse as parse_container
+    from libavif_tpu_torch.containers.parse import read_item_payload
+
+    metas = []
+    for data in files:
+        meta = parse_container(data).meta
+        metas.append(frame._parse_own_format(read_item_payload(meta, meta.items[meta.primary_item_id], data)))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(frame._workers()) as pool:
+        futures = [[frame._submit_plane_decode(pool, payload, rb, cb, m.n, not m.lossless)
+                    for payload, rb, cb, _, _ in m.planes] for m in metas]
+        decoded = [[frame._assemble_plane_decode(f, not m.lossless) for f in fs] for m, fs in zip(metas, futures)]
+    entropy_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles = []
+    for m, planes in zip(metas, decoded):
+        depth = m.seq.bit_depth
+        dc, ac = (1, 1) if m.lossless else frame.step_sizes(m.qindex, depth)
+        pack = np.int32 if m.lossless else np.int16
+        parts = []
+        for levels, modes, txs in planes:
+            if pack == np.int16:
+                levels = np.clip(levels, -32768, 32767)
+            parts += [a.reshape(-1).astype(pack) for a in (modes, txs, levels)]
+        thresh = frame.deblock_threshold(ac, depth) if m.deblock else 0
+        cthresh = frame.cdef_threshold(ac, depth) if m.cdef else 0
+        result = recon.decode_frame_device(
+            frame.upload(np.concatenate(parts), dev), dc, ac, thresh, cthresh,
+            geoms=tuple((rb, cb) for _, rb, cb, _, _ in m.planes), n=m.n, depth=depth, lossless=m.lossless,
+            deblock=m.deblock and thresh > 0, cdef=m.cdef and cthresh > 0)
+        handles.append(frame.start_fetch(result))
+    for h in handles:
+        frame.finish_fetch(h)
+    return entropy_s, time.perf_counter() - t0
+
+
 def table_diffs(layout, got: np.ndarray, want: np.ndarray):
     """satd/delta exact (torch.equal); dist/rate: rtol 1e-5 (1e-4 for the
     dist of 64x64 transforms) for all but 1 in 1000 entries, the
@@ -578,10 +772,10 @@ def check_rgb_service(io_formats, reformat, encode_batch, decode, smi):
           f"the CPU; RGB-PSNR min {min(psnrs):.4f} dB, {sum(map(len, files))} bytes; on {smi}", flush=True)
 
 
-def k2_per_frame() -> int:
-    """K2 launches of one W x H 4:2:0 own-format encode: one per plane
-    group of one geometry in 16x16 blocks, luma and the two chroma planes
-    together."""
+def groups_per_frame() -> int:
+    """K2 launches of one W x H 4:2:0 own-format encode, and K3 launches of
+    its decode: one per plane group of one geometry in 16x16 blocks, luma
+    and the two chroma planes together."""
     return len({(-(-H // 16), -(-W // 16)), (-(-H // 32), -(-W // 32))})
 
 
@@ -702,8 +896,8 @@ def check_native_animation(api, cuda_kernels, wavefront, frames, dev, smi):
     torch.cuda.synchronize()
     enc_s = time.perf_counter() - t0
     launches = (wavefront.encode_wavefront.launches, cuda_kernels.transform_2d.launches)
-    if launches != (BATCH * k2_per_frame(), 0):
-        raise AssertionError(f"K2, K1 launches {launches}, expected {(BATCH * k2_per_frame(), 0)}")
+    if launches != (BATCH * groups_per_frame(), 0):
+        raise AssertionError(f"K2, K1 launches {launches}, expected {(BATCH * groups_per_frame(), 0)}")
     t0 = time.perf_counter()
     if encode_animation(api, frames, "cpu", codec_choice="native") != data:
         raise AssertionError("own-format animation: the card's bytes differ from the CPU port's")
@@ -713,10 +907,15 @@ def check_native_animation(api, cuda_kernels, wavefront, frames, dev, smi):
     for device in (dev, "cpu"):
         d = api.Decoder(device=device)
         d.parse(data)
+        wavefront.decode_wavefront.launches = 0
         t0 = time.perf_counter()
         decoded.append(d.read_all())
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        if device == dev:
+            k3_launches = wavefront.decode_wavefront.launches
+    if k3_launches != BATCH * groups_per_frame():
+        raise AssertionError(f"read_all on the card: K3 launches {k3_launches}, expected {BATCH * groups_per_frame()}")
     for k, (a, b) in enumerate(zip(*decoded)):
         same_planes(a, b, f"own-format read_all frame {k}, card vs CPU")
     if len(decoded[0]) != BATCH:
@@ -725,7 +924,7 @@ def check_native_animation(api, cuda_kernels, wavefront, frames, dev, smi):
     mp = BATCH * W * H / 1e6
     print(f"[anim] native {BATCH} x {W}x{H} q{QUALITY} s{SPEED}: encode {enc_s:.3f} s ({mp / enc_s:.4f} MP/s), "
           f"K2 launches {launches[0]}, K1 launches {launches[1]}, {len(data)} bytes equal to the CPU port's ({cpu_s:.3f} s); read_all "
-          f"card {times[0]:.3f} s ({mp / times[0]:.4f} MP/s) equals CPU ({times[1]:.3f} s); Y-PSNR min "
+          f"card {times[0]:.3f} s ({mp / times[0]:.4f} MP/s, K3 launches {k3_launches}) equals CPU ({times[1]:.3f} s); Y-PSNR min "
           f"{p:.4f} dB; on {smi}", flush=True)
 
 
@@ -748,12 +947,16 @@ def check_grid(api, rdsearch_device, cuda_kernels, wavefront, frames, dev, smi):
         enc_s = time.perf_counter() - t0
         launches = (wavefront.encode_wavefront.launches, cuda_kernels.transform_2d.launches)
         rd = dict(runs)
-        want = ({torch.device(dev).type: 4}, (0, 0)) if codec == "auto" else ({}, (4 * k2_per_frame(), 0))
+        want = ({torch.device(dev).type: 4}, (0, 0)) if codec == "auto" else ({}, (4 * groups_per_frame(), 0))
         if (rd, launches) != want:
             raise AssertionError(f"{codec} grid: RD runs {rd}, K2, K1 launches {launches}, expected {want}")
+        wavefront.decode_wavefront.launches = 0
         t0 = time.perf_counter()
         out = api.Decoder(device=dev).read(data)
         dec_s = time.perf_counter() - t0
+        k3_launches = wavefront.decode_wavefront.launches
+        if k3_launches != (0 if codec == "auto" else 4 * groups_per_frame()):
+            raise AssertionError(f"{codec} grid decode: K3 launches {k3_launches}")
         if (out.width, out.height) != (2 * W, 2 * H):
             raise AssertionError(f"{codec} grid decoded {out.width}x{out.height}")
         meta = parse_container(data).meta
@@ -772,7 +975,7 @@ def check_grid(api, rdsearch_device, cuda_kernels, wavefront, frames, dev, smi):
         print(f"[grid] {codec} 2x2 x {W}x{H} ({2 * W}x{2 * H}): encode {enc_s:.3f} s "
               f"({4 * W * H / 1e6 / enc_s:.4f} MP/s), RD runs {rd}, K2 launches {launches[0]}, K1 launches "
               f"{launches[1]}, {len(data)} bytes; "
-              f"decode {dec_s:.3f} s equals the cells decoded one by one; cell Y-PSNR min {worst:.4f} dB; "
+              f"decode {dec_s:.3f} s (K3 launches {k3_launches}) equals the cells decoded one by one; cell Y-PSNR min {worst:.4f} dB; "
               f"on {smi}", flush=True)
 
 
@@ -1010,6 +1213,9 @@ def main() -> int:
     # 3b. K2 against its plain version
     step = check_step(wavefront, recon, tables, dev, smi)
 
+    # 3c. K3 against its plain version
+    k3 = check_decode(wavefront, recon, tables, dev, smi)
+
     # 4. own-format path
     imgs = gradient_frames()
     t0 = time.perf_counter()
@@ -1022,8 +1228,8 @@ def main() -> int:
     dt = time.perf_counter() - t0
     launches = (wavefront.encode_wavefront.launches, cuda_kernels.transform_2d.launches)
     # per frame: one K2 launch per plane group, luma and the chroma pair; K1 runs on decode only
-    if launches != (BATCH * k2_per_frame(), 0):
-        raise AssertionError(f"K2, K1 launches {launches}, expected {(BATCH * k2_per_frame(), 0)}")
+    if launches != (BATCH * groups_per_frame(), 0):
+        raise AssertionError(f"K2, K1 launches {launches}, expected {(BATCH * groups_per_frame(), 0)}")
     step_launches = launches[0]
     mps = BATCH * W * H / 1e6 / dt
     print(f"[main] {BATCH} x {W}x{H} q{QUALITY} s{SPEED}: {dt:.3f} s, {mps:.4f} MP/s, "
@@ -1032,14 +1238,14 @@ def main() -> int:
     wall, device = profile_device(
         lambda: encode_batch(imgs, quality=QUALITY, speed=SPEED, codec="native", device=dev))
     busy = sum(device.values()) / 1e3
-    step_main = kernel_ms(device, "encode_wavefront_kernel", BATCH * k2_per_frame())
+    step_main = kernel_ms(device, "encode_wavefront_kernel", BATCH * groups_per_frame())
     print(f"[main] under torch.profiler: wall {wall:.3f} s, device busy {busy:.4f} s "
           f"({100 * busy / wall:.2f}%), K2 device {step_main if step_main is None else f'{step_main:.5f}'} "
           f"ms per launch; top device entries: "
           + ", ".join(f"{k[:60]} {v:.3f} ms" for k, v in sorted(device.items(), key=lambda kv: -kv[1])[:4]),
           flush=True)
     device_s, entropy_s = native_split(frame, imgs, dev)
-    print(f"[main] split of the same batch: device stage alone (upload, {BATCH * k2_per_frame()} K2 "
+    print(f"[main] split of the same batch: device stage alone (upload, {BATCH * groups_per_frame()} K2 "
           f"launches, fetch) {device_s:.3f} s; host entropy coding alone {entropy_s:.3f} s; on {smi}",
           flush=True)
 
@@ -1066,19 +1272,46 @@ def main() -> int:
     psnr = 10 * np.log10(255.0**2 / max(np.mean(err * err), 1e-12))
     if not psnr > 30:
         raise AssertionError(f"Y-PSNR {psnr:.2f} dB is too low for q{QUALITY}")
-    cuda_kernels.transform_2d.launches = 0
+    wavefront.decode_wavefront.launches = cuda_kernels.transform_2d.launches = 0
     t0 = time.perf_counter()
-    for data in files:
-        decode(data, device=dev)
+    on_card = [decode(data, device=dev) for data in files]
     torch.cuda.synchronize()
     dec_all_s = time.perf_counter() - t0
-    k1_launches = cuda_kernels.transform_2d.launches
-    # per frame: each of the 5 transform types over the luma plane and the chroma pair
-    if k1_launches != BATCH * 2 * 5:
-        raise AssertionError(f"K1 launches on decode {k1_launches}, expected {BATCH * 2 * 5}")
+    dec_launches = (wavefront.decode_wavefront.launches, cuda_kernels.transform_2d.launches)
+    # per frame: one K3 launch per plane group, luma and the chroma pair; K1 no more
+    if dec_launches != (BATCH * groups_per_frame(), 0):
+        raise AssertionError(f"K3, K1 launches on decode {dec_launches}, expected {(BATCH * groups_per_frame(), 0)}")
+    t0 = time.perf_counter()
+    for i, (data, img) in enumerate(zip(files, on_card)):
+        same_planes(img, decode(data, device="cpu"), f"file {i}: card decode vs CPU decode")
+        if not y_psnr(img, imgs[i]) > 30:
+            raise AssertionError(f"file {i}: Y-PSNR {y_psnr(img, imgs[i]):.2f} dB")
+    cpu_dec_s = time.perf_counter() - t0
+    reruns = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        for data in files:
+            decode(data, device=dev)
+        torch.cuda.synchronize()
+        reruns.append(time.perf_counter() - t0)
+    mp = BATCH * W * H / 1e6
     print(f"[decode] card decode {gpu_dec_s:.3f} s equals CPU decode; Y-PSNR {psnr:.4f} dB; "
-          f"the {BATCH} files on the card {dec_all_s:.3f} s ({BATCH * W * H / 1e6 / dec_all_s:.4f} MP/s), "
-          f"K1 launches {k1_launches}", flush=True)
+          f"the {BATCH} files on the card {dec_all_s:.3f} s ({mp / dec_all_s:.4f} MP/s; reruns "
+          f"{reruns[0]:.3f} / {reruns[1]:.3f} s), K3 launches {dec_launches[0]}, K1 launches {dec_launches[1]}; "
+          f"every file's planes equal the CPU port's ({cpu_dec_s:.3f} s on the CPU), Y-PSNR > 30 dB; "
+          f"on {smi}", flush=True)
+    wall, device = profile_device(lambda: [decode(data, device=dev) for data in files])
+    busy = sum(device.values()) / 1e3
+    k3_main = kernel_ms(device, "decode_wavefront_kernel", BATCH * groups_per_frame())
+    print(f"[decode] under torch.profiler: wall {wall:.3f} s, device busy {busy:.4f} s "
+          f"({100 * busy / wall:.2f}%), K3 device {k3_main if k3_main is None else f'{k3_main:.5f}'} "
+          f"ms per launch; top device entries: "
+          + ", ".join(f"{k[:60]} {v:.3f} ms" for k, v in sorted(device.items(), key=lambda kv: -kv[1])[:6]),
+          flush=True)
+    entropy_s, dec_device_s = decode_split(frame, recon, files, dev)
+    print(f"[decode] split of the same files: host entropy decoding alone {entropy_s:.3f} s; device stage "
+          f"alone (upload, {BATCH * groups_per_frame()} K3 launches, the filters, fetch) {dec_device_s:.3f} s; "
+          f"on {smi}", flush=True)
 
     # 7. RD tables, card against CPU
     qindex = _spec_qindex(FrameParams(quality=QUALITY))
@@ -1184,7 +1417,7 @@ def main() -> int:
             "route": "cuda",
             "source": "libavif_tpu_torch/csrc/transform2d.cu",
             "replaces": "libavif_tpu/ops/pallas_kernels.py:84",
-            "launches": k1_launches,  # phase 6: the 8 files decoded on the card
+            "launches": dec_launches[1],  # phase 6: the 8 files decoded on the card (K1 runs inside K3)
             "max_abs_err": max_err,
             "ms": k1_dev,
             "call_ms": k_ms,
@@ -1208,6 +1441,24 @@ def main() -> int:
             "chain_bound_ms": step["luma"]["chain_bound_ms"],
             "library_ms": None,  # no PyTorch call computes the fused mode search
             "chroma": step["chroma"],
+        },
+        {
+            "name": "decode_wavefront",
+            "route": "cuda",
+            "source": "libavif_tpu_torch/csrc/decode_wavefront.cu",
+            "replaces": "libavif_tpu/codec/recon.py:226",
+            "launches": dec_launches[0],  # phase 6: the 8 files decoded on the card
+            "max_abs_err": k3["luma"]["max_abs_err"],  # over phase 3c's cases
+            "ms": k3["luma"]["ms"],  # one launch: the 768x512 luma plane
+            "call_ms": k3["luma"]["call_ms"],
+            "plain_ms": k3["luma"]["plain_ms"],
+            "bound_ms": k3["luma"]["bound_ms"],
+            "bound_by": k3["luma"]["bound_by"],
+            "chain_bound_ms": k3["luma"]["chain_bound_ms"],  # 79 x the one-block-wide plane's block
+            # no PyTorch call: CUDA has no int32 matmul, the inverse rounds between its passes,
+            # and the prediction depends on blocks decoded in the same call
+            "library_ms": None,
+            "chroma": k3["chroma"],
         },
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

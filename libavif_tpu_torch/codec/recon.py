@@ -14,13 +14,16 @@ per-lane bottom rows, right columns and top-row corners:
                    (r-2, c), not of (r-1, c-1) (the JAX package's carry,
                    kept for equal bytes; ``wavefront.neighbors_from_outputs``)
 
-The JAX ``lax.scan`` is a Python loop over the rb+cb-1 diagonals here,
-and the JAX ``vmap`` over same-geometry planes (U with V) is a leading
-plane dimension P. Every step is launched asynchronously; nothing in the
-loop waits for the device. On encode the whole wavefront of a plane
-group is one launch of the K2 kernel (``ops/wavefront.py``,
-``csrc/encode_wavefront.cu``) on a CUDA tensor, and its plain version on
-a CPU tensor.
+The JAX ``vmap`` over same-geometry planes (U with V) is a leading plane
+dimension P, and the JAX ``lax.scan`` over the rb+cb-1 diagonals is one
+kernel launch per plane group on a CUDA tensor: K2 on encode
+(``csrc/encode_wavefront.cu``) and K3 on decode
+(``csrc/decode_wavefront.cu``, which also synthesises each block's
+residual with its signalled inverse transform), both through
+``ops/wavefront.py``. A CPU tensor takes each kernel's plain version,
+which reads each block's neighbours back from the reconstruction already
+written; ``encode_plane_with`` runs the plain per-diagonal encode step on
+the JAX package's carry.
 
 The encoder searches every (mode, transform) pair of the speed's search
 set exhaustively: predict, residual, forward transform, deadzone
@@ -45,24 +48,13 @@ from ..ops.intra import (
     PAETH_PRED,
     SMOOTH_PRED,
     V_PRED,
-    predict_all_modes,
 )
-from ..ops.transforms import (
-    ADST_ADST,
-    ADST_DCT,
-    DCT_ADST,
-    DCT_DCT,
-    IDTX,
-    WHT_WHT,
-    inverse_transform,
-)
-from ..ops.wavefront import init_carry, steps_mat, wavefront_neighbors
+from ..ops.transforms import ADST_ADST, ADST_DCT, DCT_ADST, DCT_DCT, IDTX, WHT_WHT
+from ..ops.wavefront import TX_SET_ALL, init_carry
 
 _I32 = torch.int32
 
-# Transform-type alphabet for lossy coding (entropy symbol order).
-TX_SET_ALL = (DCT_DCT, ADST_DCT, DCT_ADST, ADST_ADST, IDTX)
-N_TX = len(TX_SET_ALL)
+N_TX = len(TX_SET_ALL)  # the lossy transform alphabet, in entropy symbol order
 
 
 def tx_search_set(speed: int, n: int, breadth: int | None = None) -> tuple:
@@ -109,29 +101,6 @@ def pad_to_blocks(plane: np.ndarray, n: int) -> np.ndarray:
     return np.pad(plane, ((0, hp - h), (0, wp - w)), mode="edge")
 
 
-def _diag_columns(rb: int, cb: int, device) -> torch.Tensor:
-    """(D, L) block column per (diagonal, lane), clipped into the plane:
-    lane i on diagonal d is block (i, d-i). Lanes off the plane compute
-    on clipped blocks and their results are never gathered back."""
-    d = torch.arange(rb + cb - 1, device=device)[:, None]
-    i = torch.arange(rb, device=device)[None, :]
-    return (d - i).clamp(0, cb - 1)
-
-
-def _to_diag(blocks: torch.Tensor, cc: torch.Tensor) -> torch.Tensor:
-    """(P, Rb, Cb, ...) block tensor -> (D, P, L, ...) diagonal-major."""
-    rb = blocks.shape[1]
-    i = torch.arange(rb, device=blocks.device)[None, :].expand(cc.shape)
-    return blocks[:, i, cc].transpose(0, 1)
-
-
-def _from_diag(diag: torch.Tensor, rb: int, cb: int) -> torch.Tensor:
-    """(D, P, L, ...) diagonal-major -> (P, Rb, Cb, ...) block tensor."""
-    r = torch.arange(rb, device=diag.device)[:, None].expand(rb, cb)
-    c = torch.arange(cb, device=diag.device)[None, :].expand(rb, cb)
-    return diag.transpose(0, 1)[:, r + c, r]
-
-
 def _blocks_to_plane(blocks: torch.Tensor, rb: int, cb: int, n: int) -> torch.Tensor:
     """(P, Rb, Cb, n, n) -> (P, Rb*n, Cb*n)."""
     return blocks.permute(0, 1, 3, 2, 4).reshape(blocks.shape[0], rb * n, cb * n)
@@ -152,60 +121,20 @@ def decode_plane(levels, modes, dc_step: int, ac_step: int, tx_types=None, *,
     levels: ([P,] Rb, Cb, n, n) int32; modes: ([P,] Rb, Cb) int32 (index
     into MODE_SET); tx_types: ([P,] Rb, Cb) int32 index into TX_SET_ALL
     (ignored for lossless; None means all-DCT). Returns ([P,] Rb*n, Cb*n)
-    int32 reconstruction."""
+    int32 reconstruction. The whole wavefront, residuals included, is one
+    ``wavefront.decode_wavefront``: one K3 launch for a CUDA tensor, its
+    plain version for a CPU tensor."""
     modes, squeeze = _as_planes(modes, 2)
-    levels = levels.reshape(modes.shape + levels.shape[-2:]).to(_I32)
+    modes = modes.to(_I32).contiguous()
     p, rb, cb = modes.shape
-    dev = modes.device
-    maxv = (1 << depth) - 1
-    mid = 1 << (depth - 1)
-
-    # Residual synthesis does not depend on the reconstruction: one batch.
-    flat = levels.reshape(-1, n, n)
-    if lossless:
-        residuals = inverse_transform(flat, WHT_WHT, n)
-    else:
-        deq = flat * steps_mat(n, dc_step, ac_step, dev)[None]
-        # Hostile-stream guard: bound dequantized coefficients to the
-        # largest magnitude a legitimate encode can produce so that
-        # adversarial levels cannot wrap the inverse.
-        cmax = 1 << (depth + 4 + n.bit_length())
-        deq = deq.clamp(-cmax, cmax)
-        if tx_types is None:
-            residuals = inverse_transform(deq, DCT_DCT, n)
-        else:
-            # Per-block type: run each basis over all blocks, mask-select.
-            txf = tx_types.reshape(-1).to(_I32).clamp(0, N_TX - 1)
-            if n > 16:
-                # ADST bases exist only for n <= 16; those symbols mean DCT.
-                txf = torch.where((txf >= 1) & (txf <= 3), 0, txf)
-                pairs = [(0, DCT_DCT), (4, IDTX)]
-            else:
-                pairs = list(enumerate(TX_SET_ALL))
-            residuals = torch.zeros_like(deq)
-            for ti, t in pairs:
-                sel = (txf == ti)[:, None, None]
-                residuals = torch.where(sel, inverse_transform(deq, t, n), residuals)
-    residuals = residuals.reshape(p, rb, cb, n, n)
-
-    cc = _diag_columns(rb, cb, dev)
-    resid_diag = _to_diag(residuals, cc)  # (D, P, L, n, n)
-    modes_diag = _to_diag(modes.to(torch.int64), cc)  # (D, P, L)
-
-    carry = init_carry(p, rb, n, mid, dev)
-    rec = []
-    for d in range(cc.shape[0]):
-        top, left, topleft = wavefront_neighbors(carry, cc[d], mid)
-        preds = predict_all_modes(
-            top.reshape(-1, n), left.reshape(-1, n), topleft.reshape(-1), n
-        )  # (P*L, 13, n, n)
-        sel = modes_diag[d].reshape(-1, 1, 1, 1).expand(-1, 1, n, n)
-        pred = torch.gather(preds, 1, sel)[:, 0].reshape(p, rb, n, n)
-        block = (pred + resid_diag[d]).clamp(0, maxv)
-        carry = (block[:, :, -1, :], block[:, :, :, -1], top[:, :, -1])
-        rec.append(block)
-    blocks = _from_diag(torch.stack(rec), rb, cb)
-    out = _blocks_to_plane(blocks, rb, cb, n)
+    levels = levels.reshape(p, rb, cb, n, n).to(_I32).contiguous()
+    if tx_types is not None:
+        tx_types = tx_types.reshape(p, rb, cb).to(_I32).contiguous()
+    cfg = wavefront.DecodeConfig(n=n, depth=depth, lossless=lossless, dc_step=int(dc_step),
+                                 ac_step=int(ac_step))
+    rec_blocks = torch.empty((p, rb, cb, n, n), dtype=_I32, device=modes.device)
+    wavefront.decode_wavefront(levels, modes, tx_types, rec_blocks, cfg)
+    out = _blocks_to_plane(rec_blocks, rb, cb, n)
     return out[0] if squeeze else out
 
 

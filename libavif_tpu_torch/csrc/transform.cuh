@@ -1,5 +1,6 @@
 // The exact integer core of the 2-D fixed-point transform, shared by K1
-// (transform2d.cu) and the encode wavefront (encode_wavefront.cu).
+// (transform2d.cu) and the encode and decode wavefronts
+// (encode_wavefront.cu, decode_wavefront.cu).
 //
 // For an n x n int32 block x and bases ck, rk:
 //

@@ -3,7 +3,7 @@
 // written so far, and the intra predictor (ops/intra.py).
 //
 // A wavefront kernel walks a (P, Rb, Cb) grid of n x n blocks. A lane is
-// one block row of one plane, flattened as plane * Rb + r; a CTA encodes
+// one block row of one plane, flattened as plane * Rb + r; a CTA walks
 // its lanes left to right, and progress[lane] counts the blocks of the
 // lane whose outputs are written. Block (r, c) needs the reconstruction of
 // (r - 1, c) above it, (r, c - 1) to its left (the same lane, done by the

@@ -6,12 +6,13 @@ K1, ``transform_2d``: the batched 2-D fixed-point integer transform,
 ``round2(ck @ x[b], shift1)`` then ``round2(t[b] @ rkᵀ, shift2)`` in
 int32 with wraparound. Source: ``libavif_tpu_torch/csrc/transform2d.cu``.
 It replaces ``libavif_tpu/ops/pallas_kernels.py:_mm_round2`` and
-``transform_2d``. It runs on decode, one launch per transform type per
-plane group (1536 blocks of 16 x 16 for a 768x512 luma plane), where a
-launch moves about 3 MB, so launch latency bounds it; the kernel keeps
+``transform_2d``. A launch of 1536 blocks of 16 x 16 (a 768x512 luma
+plane) moves about 3 MB, so launch latency bounds it; the kernel keeps
 both passes in one launch, with the intermediate in shared memory (see
-the source for the design). On encode its integer core
-(``csrc/transform.cuh``) runs inside K2 (``ops/wavefront.py``).
+the source for the design). The codec's main path launches it no more:
+its integer core (``csrc/transform.cuh``) runs inside K2 on encode and
+inside K3 on decode (``ops/wavefront.py``), for each block's own
+transform type. It serves ``ops.transforms`` on CUDA tensors.
 
 Every CUDA tensor goes through the kernel, or the call raises. A CPU
 tensor takes ``transform_2d_reference``, the plain version, which the CPU

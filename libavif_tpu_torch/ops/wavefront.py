@@ -1,30 +1,40 @@
-"""K2, the own-format encoder's wavefront, and its plain PyTorch versions.
+"""K2 and K3, the own-format wavefronts, and their plain PyTorch versions.
 
-``encode_wavefront`` encodes every block of every plane of a
-same-geometry group in one kernel launch. Blocks are visited in
-anti-diagonal order: block ``(r, c)`` needs the reconstruction of
-``(r - 1, c)`` above it and ``(r, c - 1)`` to its left. For each block it
-predicts the searched intra modes from those neighbours, and for each
-searched transform it runs the forward transform, the deadzone
-quantizer, the dequantizer and the inverse; it keeps the (mode,
-transform) pair of least ``SSE + lam * rate`` (first index on ties) and
-writes the winner's mode and transform symbols, levels and
-reconstruction into the ``(P, Rb, Cb, ...)`` outputs.
+Blocks are visited in anti-diagonal order: block ``(r, c)`` needs the
+reconstruction of ``(r - 1, c)`` above it and ``(r, c - 1)`` to its
+left. Each wavefront is one kernel launch per same-geometry plane group.
 
-It replaces the JAX package's ``lax.scan`` in
+``encode_wavefront`` (K2) encodes every block: it predicts the searched
+intra modes from the neighbours, and for each searched transform runs the
+forward transform, the deadzone quantizer, the dequantizer and the
+inverse; it keeps the (mode, transform) pair of least ``SSE + lam *
+rate`` (first index on ties) and writes the winner's mode and transform
+symbols, levels and reconstruction into the ``(P, Rb, Cb, ...)``
+outputs. It replaces the JAX package's ``lax.scan`` in
 ``libavif_tpu/codec/recon.py:284-337`` (an XLA program, no Pallas), with
 K1's transform (``libavif_tpu/ops/pallas_kernels.py:84``) inside it.
-Source: ``libavif_tpu_torch/csrc/encode_wavefront.cu``, one persistent
-cooperative launch per plane group; the note there gives its bounds.
+Source: ``libavif_tpu_torch/csrc/encode_wavefront.cu``.
+
+``decode_wavefront`` (K3) reconstructs every block from its levels and
+its signalled mode and transform symbols: the dequantized residual
+(clamped to ``DecodeConfig.cmax``) through the signalled inverse, then
+``clip(pred + res, 0, maxv)`` with the signalled mode's prediction. It
+replaces the JAX package's ``lax.scan`` in
+``libavif_tpu/codec/recon.py:226-243`` and, for the residual synthesis
+before it (``:193-220``), K1's inverse. Source:
+``libavif_tpu_torch/csrc/decode_wavefront.cu``. Both kernels stand on
+the scaffold ``csrc/wavefront.cuh``; the note at each source's head gives
+its bounds.
 
 A CUDA tensor launches the kernel, or the call raises. A CPU tensor takes
-``encode_wavefront_reference``, the plain version, which reads each
-block's neighbours back from the outputs written so far
-(``neighbors_from_outputs``). ``encode_step_reference`` is the plain
-version of one diagonal with the JAX package's carried wavefront state;
-``recon.encode_plane_with`` drives it, and the CPU tests hold both
-against the JAX package. ``encode_wavefront.launches`` counts kernel
-launches.
+the plain version, ``encode_wavefront_reference`` or
+``decode_wavefront_reference``, which reads each block's neighbours back
+from the reconstruction written so far (``neighbors_from_outputs``).
+``encode_step_reference`` is the plain version of one encode diagonal
+with the JAX package's carried wavefront state;
+``recon.encode_plane_with`` drives it, and the CPU tests hold every plain
+version against the JAX package. ``encode_wavefront.launches`` and
+``decode_wavefront.launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -38,12 +48,24 @@ import torch
 
 from .. import tables
 from . import _build
+from .cuda_kernels import _bases, transform_2d_reference
 from .intra import N_MODES, predict_all_modes
-from .transforms import WHT_WHT, forward_transform, inverse_transform
+from .transforms import (
+    ADST_ADST,
+    ADST_DCT,
+    DCT_ADST,
+    DCT_DCT,
+    IDTX,
+    WHT_WHT,
+    forward_transform,
+    inverse_transform,
+)
 
 _I32 = torch.int32
 TX_SIZES = (4, 8, 16, 32)
 MAX_TX = 5
+# Transform-type alphabet for lossy coding (entropy symbol order).
+TX_SET_ALL = (DCT_DCT, ADST_DCT, DCT_ADST, ADST_ADST, IDTX)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,8 +98,9 @@ class StepConfig:
 
 
 def wavefront_neighbors(carry, c_arr: torch.Tensor, mid: int):
-    """Boundary-state bookkeeping shared by encode and decode loops.
-    carry: bottoms (P, L, n), rights (P, L, n), toplasts (P, L)."""
+    """Boundary-state bookkeeping of the JAX package's carried wavefront
+    (``encode_step_reference``). carry: bottoms (P, L, n), rights (P, L,
+    n), toplasts (P, L)."""
     bottoms, rights, toplasts = carry
     top = torch.roll(bottoms, 1, dims=1)
     top[:, 0, :] = mid
@@ -313,9 +336,16 @@ def _tables_on(n: int, txs: tuple, device: str) -> torch.Tensor:
             fck, frk = tables.kernels(t, n, inverse=False)
             ick, irk = tables.kernels(t, n, inverse=True)
             parts += [fck, frk, ick.T, irk.T]
+    return _table_with_predictor(parts, n, device)
+
+
+def _table_with_predictor(parts: list, n: int, device: str) -> torch.Tensor:
+    """``parts``, then for modes D45..D203 the directional (use_top, idx,
+    frac) tables, then the smooth weights, as one int32 buffer on
+    ``device``."""
     for mode in sorted(tables.DIR_ANGLES):
-        parts += [np.asarray(a, np.int64) for a in tables.dir_tables(mode, n)]
-    parts.append(tables.smooth_weights(n))
+        parts = parts + [np.asarray(a, np.int64) for a in tables.dir_tables(mode, n)]
+    parts = parts + [tables.smooth_weights(n)]
     flat = np.concatenate([np.asarray(a, np.int64).reshape(-1) for a in parts]).astype(np.int32)
     return torch.from_numpy(flat).to(device)
 
@@ -386,3 +416,193 @@ def encode_wavefront(src_blocks, outs, cfg: StepConfig) -> None:
 
 
 encode_wavefront.launches = 0
+
+
+# ------------------------------------------------------------------ K3, decode
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeConfig:
+    """What the decode wavefront needs besides its tensors."""
+
+    n: int
+    depth: int
+    lossless: bool
+    dc_step: int
+    ac_step: int
+
+    @property
+    def cmax(self) -> int:
+        """Hostile-stream guard: dequantized coefficients are clamped to
+        ±cmax, the largest magnitude a legitimate encode can produce (8·n·maxv
+        transform gain), so adversarial levels cannot wrap the inverse."""
+        return 1 << (self.depth + 4 + self.n.bit_length())
+
+
+def decode_txs(n: int) -> tuple:
+    """The lossy inverse types a plane of n×n blocks can signal, in the
+    order of their symbols: every type up to n = 16; DCT and IDTX at
+    n = 32, where ADST bases do not exist and symbols 1-3 mean DCT."""
+    return TX_SET_ALL if n <= 16 else (DCT_DCT, IDTX)
+
+
+def _inverse_plain(coeffs, tx_type: int, n: int) -> torch.Tensor:
+    """K1's inverse in plain PyTorch on any device: (B, n, n) int32."""
+    if tx_type == WHT_WHT:
+        return inverse_transform(coeffs, WHT_WHT, n)  # plain on every device
+    ck, rk = _bases(tx_type, n, True, str(coeffs.device))
+    return transform_2d_reference(coeffs, ck, rk, tables.COS_BIT, tables.COS_BIT + 3)
+
+
+def decode_residuals(levels, tx_types, cfg: DecodeConfig) -> torch.Tensor:
+    """The residual of every block, by the JAX package's formula
+    (``libavif_tpu/codec/recon.py:193-220``): dequantize, clamp to ±cmax,
+    run every signalled type's inverse over every block and keep each
+    block's own. levels (P, Rb, Cb, n, n), tx_types (P, Rb, Cb) or None
+    (all DCT; ignored when lossless). Returns (P * Rb * Cb, n, n) int32."""
+    n = cfg.n
+    flat = levels.reshape(-1, n, n)
+    if cfg.lossless:
+        return _inverse_plain(flat, WHT_WHT, n)
+    deq = flat * steps_mat(n, cfg.dc_step, cfg.ac_step, flat.device)[None]
+    deq = deq.clamp(-cfg.cmax, cfg.cmax)
+    if tx_types is None:
+        return _inverse_plain(deq, DCT_DCT, n)
+    txf = tx_types.reshape(-1).clamp(0, MAX_TX - 1)
+    if n > 16:
+        txf = torch.where((txf >= 1) & (txf <= 3), 0, txf)
+    residuals = torch.zeros_like(deq)
+    for t in decode_txs(n):
+        sel = (txf == TX_SET_ALL.index(t))[:, None, None]
+        residuals = torch.where(sel, _inverse_plain(deq, t, n), residuals)
+    return residuals
+
+
+def decode_wavefront_reference(levels, modes, tx_types, recon_out, cfg: DecodeConfig) -> None:
+    """Plain PyTorch version of K3. The residuals as the JAX package
+    computes them (``decode_residuals``), then every diagonal of every
+    plane in order, on the on-plane blocks only, each block's neighbours
+    read back from the reconstruction written so far
+    (``neighbors_from_outputs``): all 13 modes predicted, the signalled
+    one gathered (modes are taken clamped to [0, 12], as the kernel takes
+    them), and ``clip(pred + res, 0, maxv)`` written into ``recon_out``
+    ((P, Rb, Cb, n, n))."""
+    n = cfg.n
+    p, rb, cb = modes.shape
+    if p * rb * cb == 0:
+        return
+    dev = modes.device
+    maxv = (1 << cfg.depth) - 1
+    mid = 1 << (cfg.depth - 1)
+    residuals = decode_residuals(levels, tx_types, cfg).reshape(p, rb, cb, n, n)
+    mode_idx = modes.clamp(0, N_MODES - 1).to(torch.int64)
+    for d in range(rb + cb - 1):
+        rows = torch.arange(max(0, d - cb + 1), min(rb - 1, d) + 1, device=dev)
+        cols = d - rows
+        top, left, topleft = neighbors_from_outputs(recon_out, rows, cols, mid)
+        preds = predict_all_modes(top.reshape(-1, n), left.reshape(-1, n), topleft.reshape(-1), n)
+        sel = mode_idx[:, rows, cols].reshape(-1, 1, 1, 1).expand(-1, 1, n, n)
+        pred = torch.gather(preds, 1, sel)[:, 0]
+        block = (pred + residuals[:, rows, cols].reshape(-1, n, n)).clamp(0, maxv)
+        recon_out[:, rows, cols] = block.reshape(p, rows.numel(), n, n)
+
+
+def _check_decode(levels, modes, tx_types, recon_out, cfg: DecodeConfig):
+    if cfg.n not in TX_SIZES:
+        raise ValueError(f"decode_wavefront: block size {cfg.n} not in {TX_SIZES}")
+    if modes.dim() != 3:
+        raise ValueError(f"decode_wavefront: modes must be (P, Rb, Cb), got {tuple(modes.shape)}")
+    blocks = tuple(modes.shape)
+    full = blocks + (cfg.n, cfg.n)
+    for name, t, want in (("levels", levels, full), ("tx_types", tx_types, blocks),
+                          ("recon_out", recon_out, full)):
+        if t is not None and tuple(t.shape) != want:
+            raise ValueError(f"decode_wavefront: {name} must be {want}, got {tuple(t.shape)}")
+    tensors = [t for t in (levels, modes, tx_types, recon_out) if t is not None]
+    if any(t.dtype != _I32 for t in tensors):
+        raise TypeError("decode_wavefront takes int32 tensors")
+    if any(t.device != modes.device for t in tensors):
+        raise ValueError("decode_wavefront: every tensor must be on one device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("decode_wavefront takes contiguous tensors")
+    if modes.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"decode_wavefront runs on cuda or cpu, not {modes.device}")
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_tables_on(n: int, lossless: bool, device: str) -> torch.Tensor:
+    """One int32 buffer on ``device``: for each inverse type of
+    ``decode_txs(n)`` (the Walsh-Hadamard pair when lossless) its (ck, rk)
+    bases, each (n, n) and laid out as K1 takes them; then the predictor's
+    tables, as ``_tables_on`` lays them out."""
+    if lossless:
+        h = tables._hadamard(n)
+        parts = [h.T, h.T]
+    else:
+        parts = []
+        for t in decode_txs(n):
+            ick, irk = tables.kernels(t, n, inverse=True)
+            parts += [ick.T, irk.T]
+    return _table_with_predictor(parts, n, device)
+
+
+class _DecodeParams(ctypes.Structure):
+    """Mirror of ``DecodeParams`` in ``csrc/decode_wavefront.cu``."""
+
+    _fields_ = [
+        ("p", ctypes.c_int), ("rb", ctypes.c_int), ("cb", ctypes.c_int),
+        ("n", ctypes.c_int), ("depth", ctypes.c_int), ("lossless", ctypes.c_int),
+        ("dc_step", ctypes.c_int), ("ac_step", ctypes.c_int), ("cmax", ctypes.c_int),
+    ]
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_params(cfg: DecodeConfig, p: int, rb: int, cb: int) -> _DecodeParams:
+    """The launch's constant parameters (read, never written, per call)."""
+    return _DecodeParams(p, rb, cb, cfg.n, cfg.depth, int(cfg.lossless), int(cfg.dc_step),
+                         int(cfg.ac_step), cfg.cmax)
+
+
+def decode_resident_ctas(cfg: DecodeConfig, device) -> int:
+    """How many CTAs of K3 for ``cfg`` the card holds at once: the largest
+    grid of a cooperative launch, which ``decode_wavefront`` caps at the
+    group's lane count."""
+    device = torch.device(device)
+    with _build.on_device(device):
+        got = _build.load().avt_decode_wavefront_capacity(cfg.n, int(cfg.lossless))
+    if got <= 0:
+        raise RuntimeError(f"decode_wavefront: occupancy query failed: CUDA error {-got}")
+    return got
+
+
+def decode_wavefront(levels, modes, tx_types, recon_out, cfg: DecodeConfig) -> None:
+    """K3 wrapper: reconstruct every block of every plane into
+    ``recon_out`` ((P, Rb, Cb, n, n) int32) from ``levels`` ((P, Rb, Cb,
+    n, n)), ``modes`` and ``tx_types`` ((P, Rb, Cb); None means all DCT,
+    and lossless ignores them), all int32. CUDA tensors take one
+    cooperative launch on the current stream, with a zeroed (P * Rb + 1)
+    int32 buffer of per-lane progress counters and an error word; CPU
+    tensors take the plain version."""
+    _check_decode(levels, modes, tx_types, recon_out, cfg)
+    if modes.device.type == "cpu":
+        decode_wavefront_reference(levels, modes, tx_types, recon_out, cfg)
+        return
+    p, rb, cb = modes.shape
+    if p * rb * cb == 0:
+        return
+    dev = modes.device
+    table = _decode_tables_on(cfg.n, cfg.lossless, str(dev))
+    progress = torch.zeros(p * rb + 1, dtype=_I32, device=dev)
+    lib = _build.load()
+    with _build.on_device(dev):
+        rc = lib.avt_decode_wavefront(
+            ctypes.byref(_decode_params(cfg, p, rb, cb)), levels.data_ptr(), modes.data_ptr(),
+            None if tx_types is None else tx_types.data_ptr(), recon_out.data_ptr(),
+            progress.data_ptr(), table.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"decode_wavefront launch failed: CUDA error {rc}")
+    decode_wavefront.launches += 1
+
+
+decode_wavefront.launches = 0

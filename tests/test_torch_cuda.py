@@ -1,4 +1,4 @@
-"""Tests that need an NVIDIA GPU: K1, K2 (the encode wavefront), the
+"""Tests that need an NVIDIA GPU: K1, K2 and K3 (the encode and decode wavefronts), the
 own-format path, the spec path's RD pre-pass, the pixel pipeline and animations on the card, each
 held against the port's own plain PyTorch path on the CPU.
 
@@ -169,6 +169,99 @@ def test_encode_batch_bytes_on_card_equal_cpu(cuda):
     a = api.decode(on_card[0], device=cuda)
     b = api.decode(on_card[0], device="cpu")
     for pa, pb in zip(a.yuv_planes, b.yuv_planes):
+        np.testing.assert_array_equal(pa, pb)
+
+
+def _decode_symbols(seed, p, rb, cb, n, lossless, device):
+    """Sparse random levels, modes in [0, 12] and transform symbols in
+    [0, 4] of p planes, int32 on ``device``."""
+    rng = np.random.default_rng(seed)
+    span = 1 << 12 if lossless else 24
+    levels = rng.integers(-span, span + 1, (p, rb, cb, n, n)) * (rng.random((p, rb, cb, n, n)) < 0.3)
+    modes = rng.integers(0, 13, (p, rb, cb))
+    txs = rng.integers(0, 5, (p, rb, cb))
+    return tuple(torch.from_numpy(a.astype(np.int32)).to(device) for a in (levels, modes, txs))
+
+
+def _assert_k3_equals_plain(levels, modes, txs, cfg):
+    """One K3 launch, equal to the plain version on the same tensors."""
+    rec = torch.full(levels.shape, -1, dtype=torch.int32, device=levels.device)
+    before = wavefront.decode_wavefront.launches
+    wavefront.decode_wavefront(levels, modes, txs, rec, cfg)
+    torch.cuda.synchronize()
+    assert wavefront.decode_wavefront.launches - before == 1
+    want = torch.full_like(rec, -1)
+    wavefront.decode_wavefront_reference(levels, modes, txs, want, cfg)
+    assert torch.equal(rec, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth,lossless,speed,n,shape,search", _STEP_CONFIGS)
+def test_decode_kernel_matches_plain_version(cuda, depth, lossless, speed, n, shape, search):
+    """The encoder's symbols of two planes, then random symbols that
+    signal every mode and transform type."""
+    src = _step_planes(depth, n, shape).to(cuda)
+    dc, ac = (1, 1) if lossless else tables.step_sizes(150, depth)
+    cfg = wavefront.DecodeConfig(n, depth, lossless, int(dc), int(ac))
+    modes, levels, _, txs = recon.encode_plane(src, dc, ac, n=n, depth=depth, lossless=lossless,
+                                               speed=speed, search=search)
+    _assert_k3_equals_plain(levels, modes, txs, cfg)
+    _assert_k3_equals_plain(*_decode_symbols(n + depth, 2, *modes.shape[1:], n, lossless, cuda), cfg)
+
+
+@pytest.mark.cuda
+def test_decode_kernel_on_hostile_symbols(cuda):
+    """n = 32, depth 12: levels of ±32768 (the ±cmax clamp), transform
+    symbols -3/2/7/1 and modes outside [0, 12], which both versions clamp."""
+    n, depth = 32, 12
+    rng = np.random.default_rng(3)
+    levels = torch.from_numpy(rng.integers(-32768, 32769, (1, 2, 2, n, n)).astype(np.int32)).to(cuda)
+    modes = torch.tensor([[[-50, 3], [12, 200]]], dtype=torch.int32, device=cuda)
+    txs = torch.tensor([[[-3, 2], [7, 1]]], dtype=torch.int32, device=cuda)
+    dc, ac = tables.step_sizes(200, depth)
+    _assert_k3_equals_plain(levels, modes, txs, wavefront.DecodeConfig(n, depth, False, int(dc), int(ac)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16, 32])
+def test_decode_kernel_with_more_lanes_than_its_grid(cuda, n):
+    """More lanes than the card holds CTAs at once, so a CTA decodes
+    several lanes one after another."""
+    dc, ac = tables.step_sizes(150, 8)
+    cfg = wavefront.DecodeConfig(n, 8, False, int(dc), int(ac))
+    rb = wavefront.decode_resident_ctas(cfg, cuda) + 37
+    _assert_k3_equals_plain(*_decode_symbols(n, 1, rb, 2, n, False, cuda), cfg)
+
+
+@pytest.mark.cuda
+def test_decode_kernel_twice_on_one_stream(cuda):
+    levels, modes, txs = _decode_symbols(4, 2, 6, 9, 8, False, cuda)
+    cfg = wavefront.DecodeConfig(8, 10, False, *map(int, tables.step_sizes(150, 10)))
+    recs = [torch.full(levels.shape, -1, dtype=torch.int32, device=cuda) for _ in range(2)]
+    before = wavefront.decode_wavefront.launches
+    for rec in recs:
+        wavefront.decode_wavefront(levels, modes, txs, rec, cfg)
+    torch.cuda.synchronize()
+    assert wavefront.decode_wavefront.launches - before == 2
+    want = torch.full_like(recs[0], -1)
+    wavefront.decode_wavefront_reference(levels, modes, txs, want, cfg)
+    assert torch.equal(recs[0], want) and torch.equal(recs[1], want)
+
+
+@pytest.mark.cuda
+def test_decode_on_card_runs_k3_and_no_k1(cuda):
+    img = Image(80, 48, 8, PixelFormat.YUV420)
+    img.allocate_planes("yuv")
+    rng = np.random.default_rng(2)
+    for p in img.yuv_planes:
+        p[:] = rng.integers(0, 256, p.shape).astype(np.uint8)
+    [data] = api.encode_batch([img], quality=75, speed=6, codec="native", device=cuda)
+    before = (wavefront.decode_wavefront.launches, cuda_kernels.transform_2d.launches)
+    on_card = api.decode(data, device=cuda)
+    # one K3 launch for luma and one for the chroma pair
+    assert (wavefront.decode_wavefront.launches - before[0], cuda_kernels.transform_2d.launches) == (
+        2, before[1])
+    for pa, pb in zip(on_card.yuv_planes, api.decode(data, device="cpu").yuv_planes):
         np.testing.assert_array_equal(pa, pb)
 
 
