@@ -95,7 +95,21 @@ Phases, each printed as it runs; any failure ends the run non-zero:
      gain-map 'tmap' still;
  17. CLI: a subprocess runs python -m libavif_tpu_torch.cli.avifenc on a
      PNG, another avifdec back to PNG; RGB-PSNR > 30 dB, and the reformat
-     run counters of both processes show the card only.
+     run counters of both processes show the card only;
+ 18. multi-device (libavif_tpu_torch.parallel, utils.trace, entry):
+     (a) phase 4's batch with set_default_codec_mesh(make_codec_mesh(1))
+     over the card: K2 launches 2 for the 8 frames (luma P = 8, chroma
+     P = 16), bytes equal to phase 4's; the 8 streams in one
+     decode_frames_pipelined call: K3 launches 2, planes equal to phase
+     6's; both routes' walls (best and spread of 5 runs, in turns) and the
+     batched route's device busy share; one batched K2 and K3 launch per
+     plane group against their plain versions (torch.equal), timed per
+     launch; then the default mesh is None again;
+     (b) entry.dryrun_multichip(1) on the card;
+     (c) host-sharded GOPs over 2 spawned processes on the card, bytes
+     equal to the local encode with the same keyframes: phase 14's
+     own-format GOP, and phase 13's spec content cut to 4 frames;
+     (d) utils.trace.device_trace around one own-format batch names K2.
 
 The last two lines are a JSON object describing each kernel, then
 {"ok": true, "device": {...}}.
@@ -208,9 +222,17 @@ def check_k1(cuda_kernels, tables, dev):
     return worst
 
 
+class DeviceTimes(dict):
+    """Device ms by kernel name (the CUDA kernels' and copies' self device
+    time), with ``records``: how many records of each name the profiler
+    kept."""
+
+    records: dict
+
+
 def profile_device(fn, iters: int = 1):
-    """Run fn() iters times under torch.profiler. Returns (wall s, device
-    ms by kernel name): the CUDA kernels' and copies' self device time."""
+    """Run fn() iters times under torch.profiler. Returns (wall s,
+    DeviceTimes)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -220,21 +242,72 @@ def profile_device(fn, iters: int = 1):
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    device = {}
+    device = DeviceTimes()
+    device.records = {}
     for evt in prof.key_averages():
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = getattr(evt, "self_cuda_time_total", 0)
         if us:
             device[evt.key] = device.get(evt.key, 0.0) + us / 1e3
+            device.records[evt.key] = device.records.get(evt.key, 0) + evt.count
     return wall, device
 
 
-def kernel_ms(device: dict, name: str, launches: int):
+def kernel_records(device: DeviceTimes, name: str) -> int:
+    return sum(n for key, n in device.records.items() if name in key)
+
+
+def kernel_ms(device: DeviceTimes, name: str, launches: int):
     """Device ms per launch of the kernels whose name holds ``name``, or
-    None when the profiler recorded none."""
+    None when the profiler kept fewer records of them than ``launches``."""
     total = sum(ms for key, ms in device.items() if name in key)
-    return total / launches if total else None
+    return total / launches if total and kernel_records(device, name) == launches else None
+
+
+def per_launch(device: DeviceTimes, ms, name: str) -> str:
+    """``kernel_ms``'s result as text."""
+    return f"{ms:.5f} ms" if ms is not None else f"not measured (the profiler kept {kernel_records(device, name)} records)"
+
+
+def launch_ms(fn, iters: int) -> list:
+    """Device ms of each of ``iters`` calls of fn (one kernel launch and
+    its few set-up kernels), from a CUDA event pair recorded on the stream
+    around each call, the calls back to back; sorted. The stream first
+    sleeps about 50 ms, so every call is enqueued before the first runs
+    and a pair holds device work only, not the host's time to enqueue a
+    short launch."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)  # clock cycles
+    pairs = []
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sorted(a.elapsed_time(b) for a, b in pairs)
+
+
+def device_ms(launch, name: str, counter, iters: int) -> tuple:
+    """Device ms per launch of ``launch`` (one launch of a kernel whose
+    name holds ``name``, counted by ``counter.launches``, and its few
+    set-up kernels). torch.profiler's self device time when it kept a
+    record of every launch; it does not always keep those of the kernels
+    launched through ctypes, and then the median of CUDA event pairs
+    around each launch (tools/torch_profiler_records.py sets the two side
+    by side). Returns (ms, where it comes from)."""
+    before = counter.launches
+    _, device = profile_device(launch, iters)
+    launched = counter.launches - before
+    ms = kernel_ms(device, name, launched)
+    if ms is not None:
+        return ms, f"torch.profiler, {iters} launches"
+    pairs = launch_ms(launch, iters)
+    return pairs[len(pairs) // 2], (f"median of CUDA event pairs around {iters} launches; torch.profiler kept "
+                                    f"{kernel_records(device, name)} of {launched} records")
 
 
 def step_configs():
@@ -325,6 +398,8 @@ def check_step(wavefront, recon, tables, dev, smi):
         src = seeded_planes(3, 8, (h, w), 16, p).to(dev)
         rb, cb = h // 16, w // 16
 
+        src_blocks, outs, cfg, _ = recon._encode_setup(src, dc, ac, 16, 8, False, SPEED, (None, None))
+
         def kernel():
             recon.encode_plane(src, dc, ac, **kw)
 
@@ -335,17 +410,16 @@ def check_step(wavefront, recon, tables, dev, smi):
         k1 = time_ms(kernel, 20)
         k2 = time_ms(kernel, 20)
         p2 = time_ms(plain, 2)
-        before = wavefront.encode_wavefront.launches
-        _, device = profile_device(kernel, 10)
-        dev_ms = kernel_ms(device, "encode_wavefront_kernel", wavefront.encode_wavefront.launches - before)
+        dev_ms, source = device_ms(lambda: wavefront.encode_wavefront(src_blocks, outs, cfg),
+                                   "encode_wavefront_kernel", wavefront.encode_wavefront, 10)
         bound, bound_by = step_bound_ms(p, rb, cb, 16, 13)
         chain = chain_bound_ms(rb, cb, 16, 13)
         diagonals = rb + cb - 1
         numbers[name] = dict(ms=dev_ms, max_abs_err=worst, call_ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
                              bound_ms=bound, bound_by=bound_by, chain_bound_ms=chain)
-        per_diag = "not measured" if dev_ms is None else f"{dev_ms / diagonals:.5f} ms"
+        per_diag = f"{dev_ms / diagonals:.5f} ms"
         print(f"[k2] {name} {w}x{h} P={p} s{SPEED} n=16: per launch (the whole plane group) kernel device "
-              f"{dev_ms if dev_ms is None else f'{dev_ms:.5f}'} ms (torch.profiler, 10 launches), call "
+              f"{dev_ms:.5f} ms ({source}), call "
               f"{(k1 + k2) / 2:.5f} ms (runs {k1:.5f}/{k2:.5f}), plain per-diagonal loop "
               f"{(p1 + p2) / 2:.5f} ms (runs {p1:.5f}/{p2:.5f}); throughput bound {bound:.5f} ms "
               f"({bound_by}), chain bound {chain:.5f} ms ({diagonals} blocks at one SM's rate); per "
@@ -454,14 +528,12 @@ def check_decode(wavefront, recon, tables, dev, smi):
         k1 = time_ms(kernel, 50)
         k2 = time_ms(kernel, 50)
         p2 = time_ms(plain, 2)
-        before = wavefront.decode_wavefront.launches
-        _, device = profile_device(kernel, 20)
-        dev_ms = kernel_ms(device, "decode_wavefront_kernel", wavefront.decode_wavefront.launches - before)
+        dev_ms, source = device_ms(kernel, "decode_wavefront_kernel", wavefront.decode_wavefront, 20)
         bound, bound_by = decode_bound_ms(p, rb, cb, 16)
         numbers[name] = dict(ms=dev_ms, call_ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, bound_ms=bound,
                              bound_by=bound_by, diagonals=rb + cb - 1)
         print(f"[k3] {name} {w}x{h} P={p} n=16 q{QUALITY}: per launch (the whole plane group) kernel device "
-              f"{dev_ms if dev_ms is None else f'{dev_ms:.5f}'} ms (torch.profiler, 20 launches), call "
+              f"{dev_ms:.5f} ms ({source}), call "
               f"{(k1 + k2) / 2:.5f} ms (runs {k1:.5f}/{k2:.5f}), plain version {(p1 + p2) / 2:.5f} ms (runs "
               f"{p1:.5f}/{p2:.5f}); throughput bound {bound:.6f} ms ({bound_by}); CUDA events, order plain, "
               f"kernel, kernel, plain; on {smi}", flush=True)
@@ -480,17 +552,15 @@ def check_decode(wavefront, recon, tables, dev, smi):
             wavefront.decode_wavefront(levels, modes, txs, out, cfg)
 
         call = time_ms(run, 50) / blocks
-        before = wavefront.decode_wavefront.launches
-        _, device = profile_device(run, 20)
-        dev_ms = kernel_ms(device, "decode_wavefront_kernel", wavefront.decode_wavefront.launches - before)
-        per_block[name] = (call, None if dev_ms is None else dev_ms / blocks)
-    link = per_block["column"][1] if per_block["column"][1] is not None else per_block["column"][0]
+        dev_ms, _ = device_ms(run, "decode_wavefront_kernel", wavefront.decode_wavefront, 20)
+        per_block[name] = (call, dev_ms / blocks)
+    link = per_block["column"][1]
     for name in numbers:
         numbers[name]["chain_bound_ms"] = numbers[name].pop("diagonals") * link
         numbers[name]["max_abs_err"] = worst
 
     def us(v):
-        return "not measured" if v is None else f"{v * 1e3:.3f} us"
+        return f"{v * 1e3:.3f} us"
 
     print(f"[k3] per 16x16 block: {us(per_block['row'][1])} device, {us(per_block['row'][0])} call in a lane "
           f"of {W // 16} (no wait); {us(per_block['column'][1])} device, {us(per_block['column'][0])} call in a "
@@ -1107,6 +1177,237 @@ def check_cli(smi):
           f"runs {counts[0][0]} + {counts[1][1]}, none on the CPU; on {smi}", flush=True)
 
 
+def primary_obus(data: bytes) -> bytes:
+    from libavif_tpu_torch.containers.parse import parse as parse_container
+    from libavif_tpu_torch.containers.parse import read_item_payload
+
+    meta = parse_container(data).meta
+    return read_item_payload(meta, meta.items[meta.primary_item_id], data)
+
+
+def spread(runs: list) -> str:
+    return (f"best {min(runs):.4f} s, spread {max(runs) - min(runs):.4f} s (runs "
+            + ", ".join(f"{r:.4f}" for r in runs) + ")")
+
+
+def check_batched_launches(wavefront, recon, tables, imgs, dev, smi):
+    """Phase 18a's kernel half: one batched K2 launch and one batched K3
+    launch per plane group of the 8-frame batch (luma P = 8, the chroma
+    pairs P = 16), each against its plain version (torch.equal), timed as
+    in phases 3b/3c. Returns the kernels line's numbers."""
+    dc, ac = tables.step_sizes(150, 8)  # q75
+    kw = dict(n=16, depth=8, lossless=False, speed=SPEED)
+    cfg = wavefront.DecodeConfig(16, 8, False, int(dc), int(ac))
+    stacks = {
+        "luma": [im.yuv_planes[0] for im in imgs],
+        "chroma": [im.yuv_planes[c] for im in imgs for c in (1, 2)],
+    }
+    numbers = {}
+    for name, planes in stacks.items():
+        src = torch.from_numpy(np.stack([recon.pad_to_blocks(p, 16) for p in planes]).astype(np.int32)).to(dev)
+        p, hp, wp = src.shape
+        rb, cb = hp // 16, wp // 16
+        grids = {"K2": wavefront.resident_ctas(recon.search_config(16, 8, False, dc, ac, SPEED), dev),
+                 "K3": wavefront.decode_resident_ctas(cfg, dev)}
+        modes, levels, rec, txs = recon.encode_plane(src, dc, ac, **kw)
+        plain = recon.encode_plane_with(wavefront.encode_step_reference, src, dc, ac, **kw)
+        for what, a, b in zip(("modes", "levels", "recon", "tx_types"), (modes, levels, rec, txs), plain):
+            if not torch.equal(a, b):
+                raise AssertionError(f"batched K2 {name} P={p}: {what} differs from the plain per-diagonal loop")
+        out, plain_out = torch.empty_like(levels), torch.empty_like(levels)
+        wavefront.decode_wavefront(levels, modes, txs, out, cfg)
+        wavefront.decode_wavefront_reference(levels, modes, txs, plain_out, cfg)
+        if not torch.equal(out, plain_out):
+            raise AssertionError(f"batched K3 {name} P={p} differs from its plain version")
+        if not torch.equal(recon._blocks_to_plane(out, rb, cb, 16), rec):
+            raise AssertionError(f"batched K3 {name} P={p} does not rebuild K2's reconstruction")
+        src_blocks, outs, step_cfg, _ = recon._encode_setup(src, dc, ac, 16, 8, False, SPEED, (None, None))
+        rows = {}
+        for kernel_name, call, launch, plain_fn, counter, iters in (
+            ("encode_wavefront_kernel", lambda: recon.encode_plane(src, dc, ac, **kw),
+             lambda: wavefront.encode_wavefront(src_blocks, outs, step_cfg),
+             lambda: recon.encode_plane_with(wavefront.encode_step_reference, src, dc, ac, **kw),
+             wavefront.encode_wavefront, 10),
+            ("decode_wavefront_kernel", lambda: wavefront.decode_wavefront(levels, modes, txs, out, cfg),
+             lambda: wavefront.decode_wavefront(levels, modes, txs, out, cfg),
+             lambda: wavefront.decode_wavefront_reference(levels, modes, txs, plain_out, cfg),
+             wavefront.decode_wavefront, 20),
+        ):
+            p1 = time_ms(plain_fn, 1)
+            k1 = time_ms(call, iters)
+            k2 = time_ms(call, iters)
+            p2 = time_ms(plain_fn, 1)
+            dev_ms, source = device_ms(launch, kernel_name, counter, iters)
+            rows[kernel_name] = dict(ms=dev_ms, source=source, call_ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, p=p)
+        enc, dec = rows["encode_wavefront_kernel"], rows["decode_wavefront_kernel"]
+        enc["bound_ms"], enc["bound_by"] = step_bound_ms(p, rb, cb, 16, 13)
+        enc["chain_bound_ms"] = chain_bound_ms(rb, cb, 16, 13)
+        dec["bound_ms"], dec["bound_by"] = decode_bound_ms(p, rb, cb, 16)
+        numbers[name] = rows
+        for label, r in (("K2", enc), ("K3", dec)):
+            source = r.pop("source")
+            print(f"[batch] {label} {name} {wp}x{hp} P={p} ({p * rb} lanes, a cooperative grid of {grids[label]} CTAs): "
+                  f"equal to the plain version (torch.equal); per launch device {r['ms']:.5f} ms ({source}); "
+                  f"call {r['call_ms']:.5f} ms, plain {r['plain_ms']:.5f} ms (CUDA events, order plain, call, call, plain); throughput bound "
+                  f"{r['bound_ms']:.5f} ms ({r['bound_by']}); on {smi}", flush=True)
+    return numbers
+
+
+def check_batched_route(api, frame, shard, cuda_kernels, wavefront, files, on_card, dev, smi, launch_times):
+    """Phase 18a: phase 4's batch with a one-device codec mesh over the
+    card as the default, so uniform batches take the sharded route: one
+    K2 launch per plane group for the whole batch, and its decode one K3
+    launch per plane group. Bytes and planes equal phases 4 and 6; walls
+    of both routes, best and spread of 5 runs in turns; the batched
+    route's device busy share, with ``launch_times``' per-launch times
+    (check_batched_launches) for wavefront launches whose records the
+    profiler did not keep."""
+    imgs = gradient_frames()  # phase 10 gave imgs[0] an alpha plane
+    streams = [primary_obus(data) for data in files]
+    mesh = shard.make_codec_mesh(1)
+    if mesh.devices.shape != (1, 1) or mesh.devices[0, 0] != dev:
+        raise AssertionError(f"make_codec_mesh(1) is {mesh}")
+
+    def encode():
+        return api.encode_batch(imgs, quality=QUALITY, speed=SPEED, codec="native", device=dev)
+
+    def decode():
+        return frame.decode_frames_pipelined(streams, device=dev)
+
+    routes = {"batched": mesh, "per-frame": None}
+    try:
+        shard.set_default_codec_mesh(mesh)
+        encode()  # warm-up of the batched shapes
+        cuda_kernels.transform_2d.launches = wavefront.encode_wavefront.launches = 0
+        batched = encode()
+        torch.cuda.synchronize()
+        launches = (wavefront.encode_wavefront.launches, cuda_kernels.transform_2d.launches)
+        if launches != (groups_per_frame(), 0):
+            raise AssertionError(f"batched encode: K2, K1 launches {launches}, expected {(groups_per_frame(), 0)}")
+        if batched != files:
+            raise AssertionError("batched encode: bytes differ from phase 4's per-frame files")
+        decode()
+        wavefront.decode_wavefront.launches = cuda_kernels.transform_2d.launches = 0
+        decoded = decode()
+        torch.cuda.synchronize()
+        dec_launches = (wavefront.decode_wavefront.launches, cuda_kernels.transform_2d.launches)
+        if dec_launches != (groups_per_frame(), 0):
+            raise AssertionError(f"batched decode: K3, K1 launches {dec_launches}, expected {(groups_per_frame(), 0)}")
+        for i, (a, b) in enumerate(zip(decoded, on_card)):
+            same_planes(a, b, f"batched decode of file {i} vs phase 6")
+        walls = {(op, route): [] for op in ("encode", "decode") for route in routes}
+        for run in range(5):
+            for route in ("per-frame", "batched")[:: 1 if run % 2 == 0 else -1]:
+                shard.set_default_codec_mesh(routes[route])
+                for op, fn in (("encode", encode), ("decode", decode)):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    walls[op, route].append(time.perf_counter() - t0)
+        shard.set_default_codec_mesh(mesh)
+        busy = {}
+        for op, fn, kernel_name in (("encode", encode, "encode_wavefront_kernel"),
+                                    ("decode", decode, "decode_wavefront_kernel")):
+            wall, device = profile_device(fn)
+            kept = kernel_records(device, kernel_name)
+            busy_ms = sum(device.values())
+            if kept < groups_per_frame():
+                busy_ms += sum(rows[kernel_name]["ms"] for rows in launch_times.values())
+                busy_ms -= sum(ms for key, ms in device.items() if kernel_name in key)
+            busy[op] = (busy_ms / 1e3, wall, kept)
+    finally:
+        shard.set_default_codec_mesh(None)
+    mp = BATCH * W * H / 1e6
+    for op in ("encode", "decode"):
+        b, w, kept = busy[op]
+        print(f"[batch] {op} {BATCH} x {W}x{H} q{QUALITY} s{SPEED}: batched route (one-device mesh) "
+              f"{spread(walls[op, 'batched'])}, {mp / min(walls[op, 'batched']):.4f} MP/s at best; per-frame "
+              f"route {spread(walls[op, 'per-frame'])}, {mp / min(walls[op, 'per-frame']):.4f} MP/s at best; "
+              f"host clock ending in synchronize, routes in turns; batched under torch.profiler: wall {w:.4f} s, "
+              f"device busy {b:.4f} s ({100 * b / w:.2f}%; the profiler kept {kept} of {groups_per_frame()} wavefront "
+              f"kernel records, the wavefront launches' time from phase 18a's per-launch device times when it "
+              f"kept fewer); on {smi}", flush=True)
+    print(f"[batch] batched route: K2 launches {launches[0]} for {BATCH} frames (per-frame route "
+          f"{BATCH * groups_per_frame()}), bytes equal to phase 4's; K3 launches {dec_launches[0]}, planes "
+          f"equal to phase 6's; K1 launches 0; the default mesh is None again", flush=True)
+    return launches[0], dec_launches[0]
+
+
+def host_sharded_gop(api, hosts, frames, dev, codec: str):
+    """Phase 18c: ``frames`` GOP-sharded over 2 spawned processes on the
+    card against the local encode with the same keyframe schedule.
+    Returns (local s, sharded s, bytes)."""
+    from libavif_tpu_torch.constants import ADD_IMAGE_FLAG_FORCE_KEYFRAME
+
+    leaders = {r[0] for r in hosts.shard_gops(len(frames), 2)}
+
+    def encoder():
+        enc = api.Encoder(device=dev)
+        enc.quality, enc.speed, enc.timescale, enc.codec_choice = QUALITY, SPEED, 30, codec
+        return enc
+
+    local = encoder()
+    for i, f in enumerate(frames):
+        local.add_image(f, flags=ADD_IMAGE_FLAG_FORCE_KEYFRAME if i in leaders else 0)
+    t0 = time.perf_counter()
+    local_blob = local.finish()
+    local_s = time.perf_counter() - t0
+    sharded = encoder()
+    for f in frames:
+        sharded.add_image(f)
+    t0 = time.perf_counter()
+    blob = hosts.encode_animation_host_sharded(sharded, n_hosts=2, devices_per_host=1)
+    sharded_s = time.perf_counter() - t0
+    if blob != local_blob:
+        raise AssertionError(f"{codec} GOP: the host-sharded file differs from the local encode")
+    return local_s, sharded_s, len(blob)
+
+
+def check_multi_device(api, frame, files, on_card, dev, smi, cuda_kernels, wavefront, recon, tables):
+    """Phase 18: the multi-device codec on the card. Returns the batched
+    launch counts and the kernels line's batched numbers."""
+    from libavif_tpu_torch import entry
+    from libavif_tpu_torch.parallel import hosts, shard
+    from libavif_tpu_torch.utils import trace
+
+    # (a) the batched launches alone, then the main path through the one-device mesh
+    numbers = check_batched_launches(wavefront, recon, tables, gradient_frames(), dev, smi)
+    enc_launches, dec_launches = check_batched_route(api, frame, shard, cuda_kernels, wavefront, files,
+                                                     on_card, dev, smi, numbers)
+
+    # (b) the dry run on a one-device mesh over the card
+    t0 = time.perf_counter()
+    entry.dryrun_multichip(1)
+    if shard.default_codec_mesh() is not None:
+        raise AssertionError("dryrun_multichip left a default mesh")
+    print(f"[multi] dryrun_multichip(1) on {dev}: sharded encode, halo and decode equal, 2x2 grids in both "
+          f"codecs, 4-frame GOP over 2 processes equal to the local encode; {time.perf_counter() - t0:.3f} s",
+          flush=True)
+
+    # (c) host-sharded GOPs at 768x512: the own format, then the spec GOP
+    # cut to 4 frames (its RD pre-pass runs in the workers, on the card)
+    frames = pan_frames()
+    for codec, gop in (("native", frames), ("auto", frames[:4])):
+        local_s, sharded_s, size = host_sharded_gop(api, hosts, gop, dev, codec)
+        print(f"[multi] {codec} GOP {len(gop)} x {W}x{H} over 2 spawned processes on {dev}: {size} bytes equal "
+              f"to the local encode with the same keyframes; local {local_s:.3f} s, host-sharded {sharded_s:.3f} s "
+              f"(process start included); on {smi}", flush=True)
+
+    # (d) a device trace of one own-format batch names K2
+    imgs = gradient_frames()
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace.device_trace(tmp, device=dev):
+            api.encode_batch(imgs, quality=QUALITY, speed=SPEED, codec="native", device=dev)
+        text = (pathlib.Path(tmp) / "trace.json").read_text()
+    k2_events = text.count("encode_wavefront_kernel")
+    if not k2_events:
+        raise AssertionError("the device trace of an own-format batch does not name K2")
+    print(f"[multi] utils.trace.device_trace around one own-format batch: trace.json {len(text)} bytes, "
+          f"{k2_events} mentions of encode_wavefront_kernel", flush=True)
+    return enc_launches, dec_launches, numbers
+
+
 def native_split(frame, imgs, dev):
     """Phase 4's batch in two stages timed alone: the device stage
     (upload, the wavefront on the card, fetch of the levels) for every
@@ -1197,16 +1498,14 @@ def main() -> int:
     k1 = time_ms(kernel, 200)
     k2 = time_ms(kernel, 200)
     p2 = time_ms(plain, 200)
-    before = cuda_kernels.transform_2d.launches
-    _, device = profile_device(kernel, 50)
-    k1_dev = kernel_ms(device, "transform2d_kernel", cuda_kernels.transform_2d.launches - before)
+    k1_dev, k1_source = device_ms(kernel, "transform2d_kernel", cuda_kernels.transform_2d, 50)
     k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
     k1_bytes = 4 * (2 * b * n * n + 2 * n * n)
     k1_ops_ms, k1_bytes_ms = 2 * b * n**3 / IMAD_PER_S * 1e3, k1_bytes / HBM_BYTES_PER_S * 1e3
     k1_bound = max(k1_ops_ms, k1_bytes_ms)
     k1_bound_by = "operations" if k1_ops_ms >= k1_bytes_ms else "bytes"
-    print(f"[k1] B={b} n={n} inverse DCT: kernel device {k1_dev if k1_dev is None else f'{k1_dev:.5f}'} ms "
-          f"(torch.profiler, 50 launches), call {k_ms:.5f} ms, plain {p_ms:.5f} ms (CUDA events, runs "
+    print(f"[k1] B={b} n={n} inverse DCT: kernel device {k1_dev:.5f} ms "
+          f"({k1_source}), call {k_ms:.5f} ms, plain {p_ms:.5f} ms (CUDA events, runs "
           f"{k1:.5f}/{k2:.5f} vs {p1:.5f}/{p2:.5f}); bound {k1_bound:.5f} ms ({k1_bound_by}); on {smi}",
           flush=True)
 
@@ -1240,8 +1539,8 @@ def main() -> int:
     busy = sum(device.values()) / 1e3
     step_main = kernel_ms(device, "encode_wavefront_kernel", BATCH * groups_per_frame())
     print(f"[main] under torch.profiler: wall {wall:.3f} s, device busy {busy:.4f} s "
-          f"({100 * busy / wall:.2f}%), K2 device {step_main if step_main is None else f'{step_main:.5f}'} "
-          f"ms per launch; top device entries: "
+          f"({100 * busy / wall:.2f}%), K2 device {per_launch(device, step_main, 'encode_wavefront_kernel')} per launch;"
+          f" top device entries: "
           + ", ".join(f"{k[:60]} {v:.3f} ms" for k, v in sorted(device.items(), key=lambda kv: -kv[1])[:4]),
           flush=True)
     device_s, entropy_s = native_split(frame, imgs, dev)
@@ -1304,8 +1603,8 @@ def main() -> int:
     busy = sum(device.values()) / 1e3
     k3_main = kernel_ms(device, "decode_wavefront_kernel", BATCH * groups_per_frame())
     print(f"[decode] under torch.profiler: wall {wall:.3f} s, device busy {busy:.4f} s "
-          f"({100 * busy / wall:.2f}%), K3 device {k3_main if k3_main is None else f'{k3_main:.5f}'} "
-          f"ms per launch; top device entries: "
+          f"({100 * busy / wall:.2f}%), K3 device {per_launch(device, k3_main, 'decode_wavefront_kernel')} per launch;"
+          f" top device entries: "
           + ", ".join(f"{k[:60]} {v:.3f} ms" for k, v in sorted(device.items(), key=lambda kv: -kv[1])[:6]),
           flush=True)
     entropy_s, dec_device_s = decode_split(frame, recon, files, dev)
@@ -1410,6 +1709,13 @@ def main() -> int:
     # 17. the command-line tools
     check_cli(smi)
 
+    # 18. the multi-device codec: the batched route, the dry run, host-sharded GOPs, the trace
+    batch_k2, batch_k3, batched = check_multi_device(api, frame, files, on_card, dev, smi, cuda_kernels,
+                                                     wavefront, recon, tables)
+
+    def batched_numbers(kernel_name: str, launches: int) -> dict:
+        return {"launches": launches, **{name: rows[kernel_name] for name, rows in batched.items()}}
+
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         {
@@ -1441,6 +1747,8 @@ def main() -> int:
             "chain_bound_ms": step["luma"]["chain_bound_ms"],
             "library_ms": None,  # no PyTorch call computes the fused mode search
             "chroma": step["chroma"],
+            # phase 18: the 8-frame batch as one launch per plane group (luma P = 8, chroma P = 16)
+            "batched": batched_numbers("encode_wavefront_kernel", batch_k2),
         },
         {
             "name": "decode_wavefront",
@@ -1459,6 +1767,7 @@ def main() -> int:
             # and the prediction depends on blocks decoded in the same call
             "library_ms": None,
             "chroma": k3["chroma"],
+            "batched": batched_numbers("decode_wavefront_kernel", batch_k3),
         },
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

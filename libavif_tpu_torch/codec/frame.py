@@ -28,6 +28,11 @@ Own-format batches pipeline device and host: every frame's device work
 is enqueued first, each result is copied to pinned host memory behind a per-frame
 CUDA event, and the host thread pool entropy-codes each frame's tiles as
 soon as its event completes, overlapping the remaining device work.
+When ``parallel.shard.default_codec_mesh()`` is a mesh of the caller's
+device type (never by default on one card), a batch of frames of one
+geometry, depth and settings runs through the mesh instead: its frame
+axis split over the mesh's devices, one call (one K2 or K3 launch per
+plane group) per device.
 """
 
 from __future__ import annotations
@@ -71,6 +76,7 @@ from . import entropy, recon
 from .av1 import encode as av1_encode
 from .av1 import interenc, rdsearch_device, still
 from .transfer import finish_fetch, start_fetch, upload
+from ..parallel import shard
 
 FRAME_MAGIC = 0x5A
 DEFAULT_TX_SIZE = 16
@@ -183,6 +189,21 @@ def _coded_planes(image_or_hdr) -> int:
 
 def _workers() -> int:
     return max(2, min(16, os.cpu_count() or 4))
+
+
+def _batch_mesh(count: int, device: torch.device):
+    """The default codec mesh when a batch of ``count`` frames for
+    ``device`` may run over it: more than one frame, and a mesh of the
+    caller's device type (a CPU caller never reaches a CUDA mesh)."""
+    if count < 2:
+        return None
+    mesh = shard.default_codec_mesh()
+    return mesh if mesh is not None and mesh.device_type == device.type else None
+
+
+def _host_rows(host: np.ndarray) -> list:
+    """Rows of a host result batch as ``finish_fetch`` handles."""
+    return [(torch.from_numpy(row), None) for row in host]
 
 
 # -------------------------------------------------------- spec-AV1 encode
@@ -369,16 +390,28 @@ def encode_frames_pipelined(images: list[Image], params: FrameParams,
         packed = np.concatenate([p.reshape(-1) for p in padded])
         staged.append((hdr, geoms, image.depth, packed))
 
-    # Enqueue every frame's device work before fetching any result.
-    fetches = []
-    for hdr, geoms, depth, packed in staged:
-        dc, ac = (1, 1) if lossless else step_sizes(params.qindex, depth)
-        result = recon.encode_frame_device(
-            upload(packed, device), dc, ac, geoms=geoms, n=n, depth=depth,
-            lossless=lossless, speed=params.speed,
-            search=(params.mode_breadth, params.tx_breadth),
-        )
-        fetches.append(start_fetch(result))
+    search = (params.mode_breadth, params.tx_breadth)
+    mesh = _batch_mesh(len(staged), device)
+    if mesh is not None and len({(g, d, p.shape) for _, g, d, p in staged}) == 1:
+        # Uniform batches (grid cells, animation frames, encode_batch)
+        # split their frame axis over the codec mesh: one call, one K2
+        # launch per plane group, per device (parallel/shard.py).
+        _, geoms0, depth0, _ = staged[0]
+        dc, ac = (1, 1) if lossless else step_sizes(params.qindex, depth0)
+        fetches = _host_rows(shard.encode_packed_frames_sharded(
+            np.stack([p for _, _, _, p in staged]), dc, ac, geoms=geoms0, n=n, depth=depth0,
+            lossless=lossless, speed=params.speed, mesh=mesh, search=search,
+        ))
+    else:
+        # Enqueue every frame's device work before fetching any result.
+        fetches = []
+        for hdr, geoms, depth, packed in staged:
+            dc, ac = (1, 1) if lossless else step_sizes(params.qindex, depth)
+            result = recon.encode_frame_device(
+                upload(packed, device), dc, ac, geoms=geoms, n=n, depth=depth,
+                lossless=lossless, speed=params.speed, search=search,
+            )
+            fetches.append(start_fetch(result))
 
     # Drain in order: every tile of every frame goes to one host pool as
     # soon as its frame's copy lands.
@@ -654,7 +687,18 @@ def decode_frame(data: bytes, width: int = 0, height: int = 0, stream=None,
     )[0]
 
 
+def _decode_device(key: tuple, packed: torch.Tensor) -> torch.Tensor:
+    """``recon.decode_frame_device`` of one frame's packed symbols (on
+    the device), with the settings in the frame's ``key``."""
+    geoms, n, depth, lossless, dc, ac, thresh, cthresh, deblock, cdef = key
+    return recon.decode_frame_device(
+        packed, dc, ac, thresh, cthresh, geoms=geoms, n=n, depth=depth, lossless=lossless,
+        deblock=deblock, cdef=cdef,
+    )
+
+
 def _decode(metas: list[_FrameMeta], device: torch.device) -> list[Image]:
+    mesh = _batch_mesh(len(metas), device)
     with ThreadPoolExecutor(_workers()) as pool:
         ent_futs = [
             [
@@ -663,7 +707,7 @@ def _decode(metas: list[_FrameMeta], device: torch.device) -> list[Image]:
             ]
             for m in metas
         ]
-        fetches = []
+        keyed, fetches = [], []
         for m, futs in zip(metas, ent_futs):
             try:
                 decoded = [_assemble_plane_decode(f, not m.lossless) for f in futs]
@@ -683,13 +727,24 @@ def _decode(metas: list[_FrameMeta], device: torch.device) -> list[Image]:
                 parts.append(levels.reshape(-1).astype(pack))
             thresh = deblock_threshold(ac, depth) if m.deblock else 0
             cthresh = cdef_threshold(ac, depth) if m.cdef else 0
-            result = recon.decode_frame_device(
-                upload(np.concatenate(parts), device), dc, ac, thresh, cthresh,
-                geoms=tuple((rb, cb) for _, rb, cb, _, _ in m.planes), n=m.n,
-                depth=depth, lossless=m.lossless,
-                deblock=m.deblock and thresh > 0, cdef=m.cdef and cthresh > 0,
-            )
-            fetches.append(start_fetch(result))
+            key = (tuple((rb, cb) for _, rb, cb, _, _ in m.planes), m.n, depth, m.lossless, dc, ac,
+                   thresh, cthresh, m.deblock and thresh > 0, m.cdef and cthresh > 0)
+            if mesh is None:  # enqueue as soon as the frame's symbols are in
+                fetches.append(start_fetch(_decode_device(key, upload(np.concatenate(parts), device))))
+            else:
+                keyed.append((key, np.concatenate(parts)))
+
+    if keyed and len({(k, p.shape) for k, p in keyed}) == 1:
+        # Uniform batches (grid cells, animation frames) split their frame
+        # axis over the codec mesh: one K3 launch per plane group and one
+        # pass of each filter per device (parallel/shard.py).
+        geoms, n, depth, lossless, dc, ac, thresh, cthresh, dbl, cdf = keyed[0][0]
+        fetches = _host_rows(shard.decode_packed_frames_sharded(
+            np.stack([p for _, p in keyed]), dc, ac, thresh, cthresh, geoms=geoms, n=n,
+            depth=depth, lossless=lossless, deblock=dbl, cdef=cdf, mesh=mesh,
+        ))
+    elif keyed:
+        fetches = [start_fetch(_decode_device(k, upload(p, device))) for k, p in keyed]
 
     out = []
     for m, handle in zip(metas, fetches):

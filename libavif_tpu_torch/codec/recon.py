@@ -14,8 +14,9 @@ per-lane bottom rows, right columns and top-row corners:
                    (r-2, c), not of (r-1, c-1) (the JAX package's carry,
                    kept for equal bytes; ``wavefront.neighbors_from_outputs``)
 
-The JAX ``vmap`` over same-geometry planes (U with V) is a leading plane
-dimension P, and the JAX ``lax.scan`` over the rb+cb-1 diagonals is one
+The JAX ``vmap`` over same-geometry planes (U with V, and in a frame
+batch those of every frame) is a leading plane dimension P, and the JAX
+``lax.scan`` over the rb+cb-1 diagonals is one
 kernel launch per plane group on a CUDA tensor: K2 on encode
 (``csrc/encode_wavefront.cu``) and K3 on decode
 (``csrc/decode_wavefront.cu``, which also synthesises each block's
@@ -234,50 +235,63 @@ def _groups(geoms) -> dict:
     return groups
 
 
+def _stacked(batch: torch.Tensor, offs: list, idxs: list, start: int, count: int, shape: tuple):
+    """The ``count`` values at ``offs[i] + start`` of every frame of
+    ``batch`` (F, L), for each plane i in ``idxs``, as (F * len(idxs),
+    *shape) int32, frame-major."""
+    f = batch.shape[0]
+    parts = [batch[:, offs[i] + start : offs[i] + start + count] for i in idxs]
+    return torch.stack(parts, dim=1).reshape(f * len(idxs), *shape).to(_I32)
+
+
 def encode_frame_device(packed: torch.Tensor, dc_step: int, ac_step: int, *, geoms, n: int,
                         depth: int, lossless: bool, speed: int = 6,
                         search: tuple = (None, None)) -> torch.Tensor:
-    """packed: 1-D concat of padded planes (per ``geoms`` (rb, cb) entries)
-    on the device. Returns one 1-D int16/int32 result buffer there.
-    Same-geometry planes (U and V) encode as one batch."""
+    """packed: ([F,] L) concat of padded planes (per ``geoms`` (rb, cb)
+    entries) on the device, one row per frame. Returns the ([F,] out_L)
+    int16/int32 results there. Same-geometry planes of every frame (U and
+    V of all F frames) encode as one batch: one ``encode_plane`` call, one
+    K2 launch on a CUDA tensor, per plane group."""
+    batch, squeeze = _as_planes(packed, 1)
+    f = batch.shape[0]
     out_dtype = pack_dtype(lossless)
     offs = np.cumsum([0] + [rb * cb * n * n for rb, cb in geoms]).tolist()
     results: list = [None] * (3 * len(geoms))
     for (rb, cb), idxs in _groups(geoms).items():
         hp, wp = rb * n, cb * n
-        planes = torch.stack(
-            [packed[offs[i] : offs[i] + hp * wp].reshape(hp, wp).to(_I32) for i in idxs]
-        )
+        planes = _stacked(batch, offs, idxs, 0, hp * wp, (hp, wp))
         modes, levels, _, txs = encode_plane(
             planes, dc_step, ac_step, n=n, depth=depth, lossless=lossless, speed=speed,
             search=search,
         )
+        modes, txs, levels = (t.reshape(f, len(idxs), -1).to(out_dtype) for t in (modes, txs, levels))
         for k, i in enumerate(idxs):
-            results[3 * i] = modes[k].reshape(-1).to(out_dtype)
-            results[3 * i + 1] = txs[k].reshape(-1).to(out_dtype)
-            results[3 * i + 2] = levels[k].reshape(-1).to(out_dtype)
-    return torch.cat(results)
+            results[3 * i : 3 * i + 3] = modes[:, k], txs[:, k], levels[:, k]
+    out = torch.cat(results, dim=1)
+    return out[0] if squeeze else out
 
 
 def decode_frame_device(packed: torch.Tensor, dc_step: int, ac_step: int, deblock_thresh: int,
                         cdef_thresh: int = 0, *, geoms, n: int, depth: int, lossless: bool,
                         deblock: bool = False, cdef: bool = False) -> torch.Tensor:
-    """packed: 1-D int16/int32 [modes, tx_types, levels] per plane on the
-    device. Returns the 1-D concat of reconstructed padded planes there,
-    uint8 for 8-bit and int16 for deeper planes. ``deblock``/``cdef``
-    apply the in-loop filters (whole-plane passes)."""
+    """packed: ([F,] L) int16/int32 [modes, tx_types, levels] per plane on
+    the device, one row per frame. Returns the ([F,] out_L) concat of
+    reconstructed padded planes there, uint8 for 8-bit and int16 for
+    deeper planes. Same-geometry planes of every frame decode as one
+    batch (one K3 launch on a CUDA tensor per plane group); ``deblock``/
+    ``cdef`` apply the in-loop filters, once over that batch (whole-plane
+    passes, each plane on its own)."""
+    batch, squeeze = _as_planes(packed, 1)
+    f = batch.shape[0]
+    out_dtype = torch.uint8 if depth == 8 else torch.int16
     offs = np.cumsum([0] + [2 * rb * cb + rb * cb * n * n for rb, cb in geoms]).tolist()
     results: list = [None] * len(geoms)
     for (rb, cb), idxs in _groups(geoms).items():
         nb = rb * cb
-
-        def field(i, start, count, shape):
-            return packed[offs[i] + start : offs[i] + start + count].reshape(shape).to(_I32)
-
         # Hostile-stream guards: symbols outside the alphabets are clipped.
-        modes = torch.stack([field(i, 0, nb, (rb, cb)).clamp(0, N_MODES - 1) for i in idxs])
-        txs = torch.stack([field(i, nb, nb, (rb, cb)).clamp(0, N_TX - 1) for i in idxs])
-        levels = torch.stack([field(i, 2 * nb, nb * n * n, (rb, cb, n, n)) for i in idxs])
+        modes = _stacked(batch, offs, idxs, 0, nb, (rb, cb)).clamp(0, N_MODES - 1)
+        txs = _stacked(batch, offs, idxs, nb, nb, (rb, cb)).clamp(0, N_TX - 1)
+        levels = _stacked(batch, offs, idxs, 2 * nb, nb * n * n, (rb, cb, n, n))
         planes = decode_plane(
             levels, modes, dc_step, ac_step, txs, n=n, depth=depth, lossless=lossless
         )
@@ -285,10 +299,11 @@ def decode_frame_device(packed: torch.Tensor, dc_step: int, ac_step: int, debloc
             planes = deblock_plane(planes, deblock_thresh, n=n)
         if cdef:
             planes = cdef_plane(planes, cdef_thresh)
-        out_dtype = torch.uint8 if depth == 8 else torch.int16
+        planes = planes.reshape(f, len(idxs), -1).to(out_dtype)
         for k, i in enumerate(idxs):
-            results[i] = planes[k].reshape(-1).to(out_dtype)
-    return torch.cat(results)
+            results[i] = planes[:, k]
+    out = torch.cat(results, dim=1)
+    return out[0] if squeeze else out
 
 
 assert N_MODES == 13  # entropy layer alphabet size; bump both together

@@ -1,6 +1,7 @@
 """Tests that need an NVIDIA GPU: K1, K2 and K3 (the encode and decode wavefronts), the
-own-format path, the spec path's RD pre-pass, the pixel pipeline and animations on the card, each
-held against the port's own plain PyTorch path on the CPU.
+own-format path (per frame, and batched through a one-device codec mesh), the spec path's RD
+pre-pass, the pixel pipeline and animations on the card, each held against the port's own plain
+PyTorch path on the CPU.
 
 They skip where ``torch.cuda.is_available()`` is false. This file imports
 no jax (the machine with the card has none), so on that machine it runs
@@ -21,6 +22,7 @@ from libavif_tpu_torch.codec.av1 import rdsearch_device
 from libavif_tpu_torch.constants import ChromaUpsampling, MatrixCoefficients, PixelFormat, Range
 from libavif_tpu_torch.image import Image
 from libavif_tpu_torch.ops import cuda_kernels, wavefront
+from libavif_tpu_torch.parallel import shard
 from libavif_tpu_torch.pixels import reformat
 
 _CASES = [
@@ -170,6 +172,69 @@ def test_encode_batch_bytes_on_card_equal_cpu(cuda):
     b = api.decode(on_card[0], device="cpu")
     for pa, pb in zip(a.yuv_planes, b.yuv_planes):
         np.testing.assert_array_equal(pa, pb)
+
+
+def _frames(seed, count, w=80, h=48):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(count):
+        img = Image(w, h, 8, PixelFormat.YUV420)
+        img.allocate_planes("yuv")
+        for p in img.yuv_planes:
+            p[:] = rng.integers(0, 256, p.shape).astype(np.uint8)
+        out.append(img)
+    return out
+
+
+@pytest.fixture
+def card_mesh(cuda):
+    """A one-device codec mesh over the card as the default, None after."""
+    shard.set_default_codec_mesh(shard.make_codec_mesh(1))
+    yield shard.default_codec_mesh()
+    shard.set_default_codec_mesh(None)
+
+
+@pytest.mark.cuda
+def test_batched_route_on_card_equals_cpu(cuda, card_mesh):
+    """A uniform batch through the mesh: one K2 launch per plane group for
+    the whole batch, bytes equal to the CPU's; its decode in one call, one
+    K3 launch per plane group, planes equal to the CPU's."""
+    imgs = _frames(5, 4)
+    before = wavefront.encode_wavefront.launches
+    files = api.encode_batch(imgs, quality=75, speed=6, codec="native", device=cuda)
+    torch.cuda.synchronize()
+    assert wavefront.encode_wavefront.launches - before == 2
+    assert files == api.encode_batch(imgs, quality=75, speed=6, codec="native", device="cpu")
+    from libavif_tpu_torch.codec import frame
+    from libavif_tpu_torch.containers.parse import parse, read_item_payload
+
+    streams = []
+    for data in files:
+        meta = parse(data).meta
+        streams.append(read_item_payload(meta, meta.items[meta.primary_item_id], data))
+    before = wavefront.decode_wavefront.launches
+    on_card = frame.decode_frames_pipelined(streams, device=cuda)
+    torch.cuda.synchronize()
+    assert wavefront.decode_wavefront.launches - before == 2
+    for a, b in zip(on_card, frame.decode_frames_pipelined(streams, device="cpu")):
+        for pa, pb in zip(a.yuv_planes, b.yuv_planes):
+            np.testing.assert_array_equal(pa, pb)
+
+
+@pytest.mark.cuda
+def test_cells_sharded_on_card_equal_cpu(cuda):
+    cells = torch.from_numpy(np.random.default_rng(6).integers(0, 256, (2, 3, 32, 48)).astype(np.int32))
+    mesh = shard.make_codec_mesh(1)
+    before = wavefront.encode_wavefront.launches
+    got = shard.encode_cells_sharded(cells, 8, 11, n=16, depth=8, lossless=False, mesh=mesh)
+    assert wavefront.encode_wavefront.launches - before == 1  # P = 6 planes in one launch
+    want = shard.encode_cells_sharded(cells, 8, 11, n=16, depth=8, lossless=False, device="cpu")
+    for a, b in zip(got, want):
+        assert a.device == cuda and torch.equal(a.cpu(), b)
+    rec = shard.decode_cells_sharded(got[1], got[0], 8, 11, n=16, depth=8, lossless=False, mesh=mesh,
+                                     tx_types=got[3])
+    assert torch.equal(rec, got[2])
+    assert torch.equal(shard.exchange_cell_boundaries(cells, mesh).cpu(), torch.zeros(2, 1, 8, 48, dtype=torch.int32))
 
 
 def _decode_symbols(seed, p, rb, cb, n, lossless, device):

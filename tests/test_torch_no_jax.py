@@ -12,7 +12,10 @@ through ``Encoder`` and ``Decoder``, a 3-frame inter-coded animation
 (``next_image`` and ``read_all``), a grid and a 16-bit ``sato`` still;
 then ``python -m libavif_tpu_torch.cli.avifenc``, ``avifdec`` and
 ``gainmaputil`` (as ``runpy`` runs them); and last it imports every
-module of the port and reports where each was loaded from.
+module of the port and reports where each was loaded from. Before that it
+runs the multi-device codec on a mesh of two ``cpu`` devices (sharded
+cells, the halo, a sharded ``encode_batch``), a ``device_trace``, the
+``entry`` step and the interop oracles' ``available()``.
 
 The JAX package's host code that imports no jax is copied into the port
 at the same relative paths (``COPIED``); each copy equals its reference
@@ -32,7 +35,7 @@ PORT = REPO / "libavif_tpu_torch"
 REFERENCE = REPO / "libavif_tpu"
 
 _SCRIPT = r"""
-import builtins, json, sys
+import builtins, json, os, sys
 sys.modules["jax"] = None
 sys.modules["libavif_tpu"] = None
 attempts = []
@@ -127,6 +130,25 @@ for argv in (["avifenc", "in.png", "cli.avif", "-q", "70"], ["avifdec", "cli.avi
         runpy.run_module(f"libavif_tpu_torch.cli.{argv[0]}", run_name="__main__")
     except SystemExit as e:
         cli_rcs.append(e.code)
+import torch
+from libavif_tpu_torch import entry
+from libavif_tpu_torch.interop import aom_oracle, dav1d_oracle, libavif_oracle
+from libavif_tpu_torch.parallel import (encode_cells_sharded, exchange_cell_boundaries, hosts,
+                                        make_codec_mesh, shard)
+from libavif_tpu_torch.utils import trace
+
+mesh = make_codec_mesh(2, devices=["cpu", "cpu"])
+sharded = encode_cells_sharded(rng.integers(0, 256, (2, 2, 32, 32)), 8, 11, n=16, depth=8, lossless=False,
+                               mesh=mesh)
+halo = exchange_cell_boundaries(sharded[2], mesh)
+shard.set_default_codec_mesh(mesh)
+batch_sharded = encode_batch([img, img], quality=75, speed=6, codec="native", device="cpu")
+shard.set_default_codec_mesh(None)
+with trace.device_trace("trace", device="cpu"):
+    with trace.stage("entry"):
+        fn, args = entry.entry(device="cpu")
+        entry_modes = fn(*args)[0]
+oracles = [libavif_oracle.available(), dav1d_oracle.available(), aom_oracle.available()]
 import importlib, pkgutil
 for info in pkgutil.walk_packages(libavif_tpu_torch.__path__, "libavif_tpu_torch."):
     if not info.name.rsplit(".", 1)[-1].startswith("_msac_"):  # the built C++ library
@@ -151,6 +173,11 @@ print(json.dumps({
     "sato": [sato.depth, bool((sato.yuv_planes[0] == img16.yuv_planes[0]).all())],
     "cli_rcs": cli_rcs,
     "cli_png_shape": list(np.asarray(PILImage.open("cli.png")).shape),
+    "sharded": [list(halo.shape), batch_sharded == encode_batch([img, img], quality=75, speed=6,
+                                                                   codec="native", device="cpu"),
+                hosts.shard_gops(5, 2) == [range(0, 3), range(3, 5)]],
+    "entry": [list(entry_modes.shape), trace.timings()["entry"]["count"], os.path.exists("trace/trace.json")],
+    "oracles": oracles,
     "one_image_class": Image is io_formats.png_jpeg.Image,
     "one_gain_map_class": libavif_tpu_torch.image.GainMap is gainmap.GainMap,
 }))
@@ -187,6 +214,9 @@ def test_port_imports_and_runs_without_jax(blocked_run):
     assert result["grid_shape"] == [128, 128]
     assert result["sato"] == [16, True]
     assert result["cli_rcs"] == [0, 0, 0, 0, 0] and result["cli_png_shape"] == [24, 40, 3]
+    assert result["sharded"] == [[2, 1, 8, 32], True, True]
+    assert result["entry"] == [[16, 16], 1, True]
+    assert result["oracles"] == [True, True, True]
     assert set(result["modules"]) == set(PORT_MODULES)
 
 
@@ -229,10 +259,31 @@ COPIED = (
     "hdr/gainmap.py", "hdr/sampletransform.py",
     "api/io.py",
     "cli/avifdec.py", "cli/avifenc.py", "cli/gainmaputil.py",
+    "interop/__init__.py", "interop/aom_oracle.py", "interop/dav1d_oracle.py", "interop/libavif_oracle.py",
+    "utils/trace.py",
 )
+
+
+
+def _tail(path: pathlib.Path, start: str) -> str:
+    """The text of ``path`` from ``start`` to its end."""
+    text = path.read_text()
+    return text[text.index(start):]
+
+
+_DEVICE_TRACE = "@contextlib.contextmanager\ndef device_trace("
 
 # Lines of a copy that differ from the reference and are not import lines.
 FIXES = {
+    # the timers are copied; device_trace, from its decorator to the end
+    # of the file, is the port's own (torch.profiler)
+    "utils/trace.py": [
+        ("in; the TPU build provides JAX profiler traces + per-stage timers).",
+         "in; the port provides torch.profiler traces + per-stage timers)."),
+        ('    with device_trace("/tmp/jax-trace"):   # opens in TensorBoard/XProf',
+         '    with device_trace("trace-dir", device):   # trace-dir/trace.json, Chrome trace format'),
+        (_tail(REFERENCE / "utils/trace.py", _DEVICE_TRACE), _tail(PORT / "utils/trace.py", _DEVICE_TRACE)),
+    ],
     "containers/compliance.py": [(
         '__import__("libavif_tpu.constants", fromlist=["PixelFormat"])',
         '__import__("libavif_tpu_torch.constants", fromlist=["PixelFormat"])',
