@@ -7,8 +7,9 @@ Phases, each printed as it runs; any failure ends the run non-zero:
   1. device: the card's name and power limit, torch and CUDA versions;
      exits non-zero when no CUDA device is available;
   2. build: K1 (libavif_tpu_torch/csrc/transform2d.cu), K2
-     (csrc/encode_wavefront.cu) and K3 (csrc/decode_wavefront.cu) from the
-     sources, one nvcc per source, in parallel;
+     (csrc/encode_wavefront.cu), K3 (csrc/decode_wavefront.cu) and K4
+     (csrc/loop_filter.cu) from the sources, one nvcc per source, in
+     parallel;
   3. K1 on the card against its plain PyTorch version, every transform
      type and size, forward and inverse, with inputs that wrap int32;
      both timed at a 768x512 luma plane's shape (1536 blocks of 16x16,
@@ -31,6 +32,16 @@ Phases, each printed as it runs; any failure ends the run non-zero:
      from torch.profiler and as a call with CUDA events, with the plain
      version's time, and per block on a plane one block high and one one
      block wide (the chain link's cost, which gives the chain bound);
+ 3d. K4, the in-loop filters (deblocking then CDEF, one launch per plane
+     group), on the card against its plain version (torch.equal): random
+     planes at n in {4, 8, 16, 32} (n = 4 planes 4 mod 8, planes off the
+     block grid and one block wide, P = 16, 4032x3024), thresholds 0,
+     small and the largest, each filter alone and both; the gradient
+     batch's reconstruction at the q75 and q50 settings; timed per
+     plane-group launch at the main path's shapes (768x512 luma P = 1, the
+     chroma pair P = 2, batched P = 8 / P = 16; q75's CDEF, and q50's
+     deblocking and CDEF on the luma plane), device-only and as a call,
+     with the plain version's time, against the bound;
   4. own-format path: 8 frames of 768x512 4:2:0 8-bit through
      libavif_tpu_torch.api.encode_batch(quality=75, speed=6,
      codec="native"): K2 launches 8 x 2 (luma, chroma pair), none of K1;
@@ -39,10 +50,12 @@ Phases, each printed as it runs; any failure ends the run non-zero:
   5. the same first frame encoded on the CPU (plain versions): the .avif
      bytes must be identical;
   6. round trip: decode on the card, equal to the CPU decode; Y-PSNR;
-     the 8 files decoded on the card: K3 launches 8 x 2, none of K1;
-     the same under torch.profiler (device busy share, K3 per launch, the
-     top device entries), and its host entropy decoding and device stage
-     timed alone;
+     the 8 files decoded on the card: K3 and K4 launches 8 x 2 each, none
+     of K1; the same under torch.profiler (device busy share, K3 and K4
+     per launch, the top device entries), and its host entropy decoding
+     and device stage timed alone, the device stage also without the
+     filters; two frames encoded at q50 (deblocking and CDEF on) decoded
+     on the card with K4 launches 2 x 2, planes equal to the CPU port's;
   7. RD tables: frame 0's luma plane through the spec encoder's RD
      pre-pass on the card and on the CPU; satd/delta equal (torch.equal),
      dist/rate within the CPU test's tolerance, the count of qcost
@@ -100,8 +113,8 @@ Phases, each printed as it runs; any failure ends the run non-zero:
      (a) phase 4's batch with set_default_codec_mesh(make_codec_mesh(1))
      over the card: K2 launches 2 for the 8 frames (luma P = 8, chroma
      P = 16), bytes equal to phase 4's; the 8 streams in one
-     decode_frames_pipelined call: K3 launches 2, planes equal to phase
-     6's; both routes' walls (best and spread of 5 runs, in turns) and the
+     decode_frames_pipelined call: K3 and K4 launches 2 each, planes equal
+     to phase 6's; both routes' walls (best and spread of 5 runs, in turns) and the
      batched route's device busy share; one batched K2 and K3 launch per
      plane group against their plain versions (torch.equal), timed per
      launch; then the default mesh is None again;
@@ -570,12 +583,135 @@ def check_decode(wavefront, recon, tables, dev, smi):
     return numbers
 
 
-def decode_split(frame, recon, files, dev):
+# Per pixel, the int32 operations the output needs: the CDEF stage's four
+# direction energies (sub, abs, add each), the chosen direction's taps
+# only (4 subs, 4 two-sided clamps, c1, c2, 4 c1 + 2 c2 + 8, the shift
+# and the add) and the select; per boundary row of deblocking, the
+# flatness test, the three new values and four selects.
+CDEF_OPS_PER_PX = 4 * 3 + 20 + 4
+DEBLOCK_OPS_PER_EDGE = 32
+
+
+def filter_bound_ms(p: int, h: int, w: int, n: int, deblock: bool, cdef: bool) -> tuple:
+    """(bound ms, 'operations' or 'bytes') of one K4 launch over p h x w
+    planes: every plane read once and written once (int32) over HBM,
+    against the int32 operations the output needs over the card's rate."""
+    ops = 0
+    if cdef:
+        ops += CDEF_OPS_PER_PX * p * (-(-h // 8) * 8) * (-(-w // 8) * 8)
+    if deblock:
+        ops += DEBLOCK_OPS_PER_EDGE * p * (h * len(range(n, w - 1, n)) + w * len(range(n, h - 1, n)))
+    ops_ms = ops / IMAD_PER_S * 1e3
+    bytes_ms = 2 * 4 * p * h * w / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def filter_planes(seed: int, shape, n: int, depth: int, dev) -> torch.Tensor:
+    """(P, H, W) int32 planes on dev: a ramp, a step per n x n block,
+    noise and a few hard edges (tests/test_torch_cuda.py's planes)."""
+    rng = np.random.default_rng(seed)
+    p, h, w = shape
+    maxv = (1 << depth) - 1
+    scale = 1 << (depth - 8)
+    yy, xx = np.mgrid[0:h, 0:w]
+    steps = rng.integers(0, 10 * scale, (p, -(-h // n), -(-w // n)))[:, yy // n, xx // n]
+    edges = (rng.random((p, h, w)) < 0.02) * rng.integers(-60 * scale, 60 * scale, (p, h, w))
+    base = (yy * 3 + xx * 2) * (maxv // 255) // 4
+    planes = np.clip(base + steps + edges + rng.integers(-scale, scale + 1, (p, h, w)), 0, maxv)
+    return torch.from_numpy(np.ascontiguousarray(planes, dtype=np.int32)).to(dev)
+
+
+def check_loop_filter(filters, frame, recon, dev, smi):
+    """Phase 3d: K4 against its plain version (torch.equal) on random and
+    on decoded planes; timed per plane-group launch at the main path's
+    shapes. Returns the kernel line's numbers for K4."""
+    worst, cases = 0, 0
+
+    def compare(planes, dt, ct, n, deblock, cdef, what):
+        nonlocal worst, cases
+        before = filters.loop_filter.launches
+        got = filters.loop_filter(planes, dt, ct, n=n, deblock=deblock, cdef=cdef)
+        torch.cuda.synchronize()
+        if filters.loop_filter.launches - before != 1:
+            raise AssertionError(f"K4: {filters.loop_filter.launches - before} launches for one call")
+        want = filters.loop_filter_reference(planes, dt, ct, n=n, deblock=deblock, cdef=cdef)
+        diff = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) if got.numel() else 0
+        worst = max(worst, diff)
+        cases += 1
+        if not torch.equal(got, want):
+            raise AssertionError(f"K4 differs from its plain version: {what} thresholds {dt}/{ct} "
+                                 f"deblock={deblock} cdef={cdef}, max|diff| {diff}")
+
+    # random planes: n = 4 planes 4 mod 8, shapes off the block grid, one
+    # block wide, the batched chroma stack (P = 16) and a 4032x3024 plane
+    random_cases = [
+        (4, 8, (3, 36, 44)), (4, 12, (1, 20, 12)), (4, 10, (16, 132, 196)), (8, 10, (3, 37, 53)),
+        (16, 12, (3, 48, 33)), (16, 8, (1, 16, 16)), (32, 10, (3, 64, 45)), (32, 8, (1, 32, 32)),
+        (16, 8, (16, H // 2, W // 2)), (16, 8, (1, PHOTO_H, PHOTO_W)), (4, 8, (1, PHOTO_H, PHOTO_W)),
+    ]
+    for n, depth, shape in random_cases:
+        planes = filter_planes(n * 100 + depth, shape, n, depth, dev)
+        for dt, ct in ((0, 0), (2, 2), (16 << (depth - 8), 12 << (depth - 8))):
+            for deblock, cdef in ((True, False), (False, True), (True, True)):
+                compare(planes, dt, ct, n, deblock, cdef, f"random n={n} depth={depth} {shape}")
+    # decoded planes: the gradient batch through K2 and K3 (unfiltered), at
+    # the q75 and q50 own-format settings
+    imgs = gradient_frames()
+    decoded = {}
+    for quality in (QUALITY, 50):
+        params = frame.FrameParams(quality=quality, speed=SPEED, codec="native")
+        dc, ac = frame.step_sizes(params.qindex, 8)
+        dt, ct = frame.deblock_threshold(ac, 8), frame.cdef_threshold(ac, 8)
+        for name, planes in (("luma", [im.yuv_planes[0] for im in imgs]),
+                             ("chroma", [im.yuv_planes[c] for im in imgs for c in (1, 2)])):
+            src = torch.from_numpy(np.stack([recon.pad_to_blocks(q, 16) for q in planes]).astype(np.int32)).to(dev)
+            _, _, rec, _ = recon.encode_plane(src, dc, ac, n=16, depth=8, lossless=False, speed=SPEED)
+            rec = rec.contiguous()
+            for deblock, cdef in ((True, False), (False, True), (True, True)):
+                compare(rec, dt, ct, 16, deblock, cdef, f"decoded q{quality} {name} P={rec.shape[0]}")
+            decoded[quality, name] = (rec, dt, ct, params.deblock_enabled, params.cdef_enabled)
+    print(f"[k4] {cases} cases equal to the plain version (torch.equal), one launch each: random planes at "
+          f"n in {{4, 8, 16, 32}} (n = 4 planes 4 mod 8, planes off the block grid and one block wide, P = 16, "
+          f"{PHOTO_W}x{PHOTO_H} at n = 4 and 16) and the gradient batch decoded at q{QUALITY} and q50, each "
+          f"filter alone and both", flush=True)
+
+    numbers = {}
+    shapes = (("luma", QUALITY, 1), ("chroma", QUALITY, 2), ("luma batched", QUALITY, BATCH),
+              ("chroma batched", QUALITY, 2 * BATCH), ("luma q50", 50, 1))
+    for name, quality, p in shapes:
+        rec, dt, ct, deblock, cdef = decoded[quality, name.split()[0]]
+        planes = rec[:p].contiguous()
+        _, h, w = planes.shape
+
+        def kernel():
+            filters.loop_filter(planes, dt, ct, n=16, deblock=deblock, cdef=cdef)
+
+        def plain():
+            filters.loop_filter_reference(planes, dt, ct, n=16, deblock=deblock, cdef=cdef)
+
+        p1 = time_ms(plain, 5)
+        k1 = time_ms(kernel, 50)
+        k2 = time_ms(kernel, 50)
+        p2 = time_ms(plain, 5)
+        dev_ms, source = device_ms(kernel, "loop_filter_kernel", filters.loop_filter, 20)
+        bound, bound_by = filter_bound_ms(p, h, w, 16, deblock, cdef)
+        numbers[name] = dict(ms=dev_ms, call_ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, bound_ms=bound,
+                             bound_by=bound_by, max_abs_err=worst)
+        on = "+".join(f for f, o in (("deblock", deblock), ("cdef", cdef)) if o)
+        print(f"[k4] {name} {w}x{h} P={p} q{quality} ({on}, thresholds {dt}/{ct}): per launch device "
+              f"{dev_ms:.5f} ms ({source}), call {(k1 + k2) / 2:.5f} ms (runs {k1:.5f}/{k2:.5f}), plain "
+              f"version {(p1 + p2) / 2:.5f} ms (runs {p1:.5f}/{p2:.5f}); bound {bound:.6f} ms ({bound_by}); "
+              f"CUDA events, order plain, kernel, kernel, plain; on {smi}", flush=True)
+    return numbers
+
+
+def decode_split(frame, recon, files, dev, with_filters: bool = True):
     """Phase 6's decode in two stages timed alone: the host entropy
     decoding of every file's tiles on the frame layer's thread pool, then
     the device stage (upload, K3 and the filters on the card, fetch) for
     every frame, all enqueued before the first fetch as the frame layer
-    does. Returns (entropy s, device s)."""
+    does; with ``with_filters`` False the device stage skips the filters.
+    Returns (entropy s, device s)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from libavif_tpu_torch.containers.parse import parse as parse_container
@@ -608,7 +744,7 @@ def decode_split(frame, recon, files, dev):
         result = recon.decode_frame_device(
             frame.upload(np.concatenate(parts), dev), dc, ac, thresh, cthresh,
             geoms=tuple((rb, cb) for _, rb, cb, _, _ in m.planes), n=m.n, depth=depth, lossless=m.lossless,
-            deblock=m.deblock and thresh > 0, cdef=m.cdef and cthresh > 0)
+            deblock=with_filters and m.deblock and thresh > 0, cdef=with_filters and m.cdef and cthresh > 0)
         handles.append(frame.start_fetch(result))
     for h in handles:
         frame.finish_fetch(h)
@@ -1257,11 +1393,13 @@ def check_batched_route(api, frame, shard, cuda_kernels, wavefront, files, on_ca
     """Phase 18a: phase 4's batch with a one-device codec mesh over the
     card as the default, so uniform batches take the sharded route: one
     K2 launch per plane group for the whole batch, and its decode one K3
-    launch per plane group. Bytes and planes equal phases 4 and 6; walls
+    and one K4 launch per plane group. Bytes and planes equal phases 4 and 6; walls
     of both routes, best and spread of 5 runs in turns; the batched
     route's device busy share, with ``launch_times``' per-launch times
     (check_batched_launches) for wavefront launches whose records the
     profiler did not keep."""
+    from libavif_tpu_torch.ops import filters
+
     imgs = gradient_frames()  # phase 10 gave imgs[0] an alpha plane
     streams = [primary_obus(data) for data in files]
     mesh = shard.make_codec_mesh(1)
@@ -1287,12 +1425,15 @@ def check_batched_route(api, frame, shard, cuda_kernels, wavefront, files, on_ca
         if batched != files:
             raise AssertionError("batched encode: bytes differ from phase 4's per-frame files")
         decode()
-        wavefront.decode_wavefront.launches = cuda_kernels.transform_2d.launches = 0
+        wavefront.decode_wavefront.launches = cuda_kernels.transform_2d.launches = filters.loop_filter.launches = 0
         decoded = decode()
         torch.cuda.synchronize()
         dec_launches = (wavefront.decode_wavefront.launches, cuda_kernels.transform_2d.launches)
+        k4_launches = filters.loop_filter.launches
         if dec_launches != (groups_per_frame(), 0):
             raise AssertionError(f"batched decode: K3, K1 launches {dec_launches}, expected {(groups_per_frame(), 0)}")
+        if k4_launches != groups_per_frame():
+            raise AssertionError(f"batched decode: K4 launches {k4_launches}, expected {groups_per_frame()}")
         for i, (a, b) in enumerate(zip(decoded, on_card)):
             same_planes(a, b, f"batched decode of file {i} vs phase 6")
         walls = {(op, route): [] for op in ("encode", "decode") for route in routes}
@@ -1329,9 +1470,9 @@ def check_batched_route(api, frame, shard, cuda_kernels, wavefront, files, on_ca
               f"kernel records, the wavefront launches' time from phase 18a's per-launch device times when it "
               f"kept fewer); on {smi}", flush=True)
     print(f"[batch] batched route: K2 launches {launches[0]} for {BATCH} frames (per-frame route "
-          f"{BATCH * groups_per_frame()}), bytes equal to phase 4's; K3 launches {dec_launches[0]}, planes "
-          f"equal to phase 6's; K1 launches 0; the default mesh is None again", flush=True)
-    return launches[0], dec_launches[0]
+          f"{BATCH * groups_per_frame()}), bytes equal to phase 4's; K3 launches {dec_launches[0]}, K4 launches "
+          f"{k4_launches}, planes equal to phase 6's; K1 launches 0; the default mesh is None again", flush=True)
+    return launches[0], dec_launches[0], k4_launches
 
 
 def host_sharded_gop(api, hosts, frames, dev, codec: str):
@@ -1373,8 +1514,8 @@ def check_multi_device(api, frame, files, on_card, dev, smi, cuda_kernels, wavef
 
     # (a) the batched launches alone, then the main path through the one-device mesh
     numbers = check_batched_launches(wavefront, recon, tables, gradient_frames(), dev, smi)
-    enc_launches, dec_launches = check_batched_route(api, frame, shard, cuda_kernels, wavefront, files,
-                                                     on_card, dev, smi, numbers)
+    enc_launches, dec_launches, k4_launches = check_batched_route(api, frame, shard, cuda_kernels, wavefront,
+                                                                  files, on_card, dev, smi, numbers)
 
     # (b) the dry run on a one-device mesh over the card
     t0 = time.perf_counter()
@@ -1405,7 +1546,7 @@ def check_multi_device(api, frame, files, on_card, dev, smi, cuda_kernels, wavef
         raise AssertionError("the device trace of an own-format batch does not name K2")
     print(f"[multi] utils.trace.device_trace around one own-format batch: trace.json {len(text)} bytes, "
           f"{k2_events} mentions of encode_wavefront_kernel", flush=True)
-    return enc_launches, dec_launches, numbers
+    return enc_launches, dec_launches, k4_launches, numbers
 
 
 def native_split(frame, imgs, dev):
@@ -1468,7 +1609,7 @@ def main() -> int:
     from libavif_tpu_torch.codec.av1.still import decode_still
     from libavif_tpu_torch.codec.frame import FrameParams, _spec_qindex
     from libavif_tpu_torch.codec import frame, recon
-    from libavif_tpu_torch.ops import _build, cuda_kernels, wavefront
+    from libavif_tpu_torch.ops import _build, cuda_kernels, filters, wavefront
 
     # 2. build
     t0 = time.perf_counter()
@@ -1514,6 +1655,9 @@ def main() -> int:
 
     # 3c. K3 against its plain version
     k3 = check_decode(wavefront, recon, tables, dev, smi)
+
+    # 3d. K4 against its plain version
+    k4 = check_loop_filter(filters, frame, recon, dev, smi)
 
     # 4. own-format path
     imgs = gradient_frames()
@@ -1571,15 +1715,18 @@ def main() -> int:
     psnr = 10 * np.log10(255.0**2 / max(np.mean(err * err), 1e-12))
     if not psnr > 30:
         raise AssertionError(f"Y-PSNR {psnr:.2f} dB is too low for q{QUALITY}")
-    wavefront.decode_wavefront.launches = cuda_kernels.transform_2d.launches = 0
+    wavefront.decode_wavefront.launches = cuda_kernels.transform_2d.launches = filters.loop_filter.launches = 0
     t0 = time.perf_counter()
     on_card = [decode(data, device=dev) for data in files]
     torch.cuda.synchronize()
     dec_all_s = time.perf_counter() - t0
     dec_launches = (wavefront.decode_wavefront.launches, cuda_kernels.transform_2d.launches)
-    # per frame: one K3 launch per plane group, luma and the chroma pair; K1 no more
+    k4_launches = filters.loop_filter.launches
+    # per frame: one K3 and one K4 launch per plane group, luma and the chroma pair; K1 no more
     if dec_launches != (BATCH * groups_per_frame(), 0):
         raise AssertionError(f"K3, K1 launches on decode {dec_launches}, expected {(BATCH * groups_per_frame(), 0)}")
+    if k4_launches != BATCH * groups_per_frame():
+        raise AssertionError(f"K4 launches on decode {k4_launches}, expected {BATCH * groups_per_frame()}")
     t0 = time.perf_counter()
     for i, (data, img) in enumerate(zip(files, on_card)):
         same_planes(img, decode(data, device="cpu"), f"file {i}: card decode vs CPU decode")
@@ -1596,21 +1743,44 @@ def main() -> int:
     mp = BATCH * W * H / 1e6
     print(f"[decode] card decode {gpu_dec_s:.3f} s equals CPU decode; Y-PSNR {psnr:.4f} dB; "
           f"the {BATCH} files on the card {dec_all_s:.3f} s ({mp / dec_all_s:.4f} MP/s; reruns "
-          f"{reruns[0]:.3f} / {reruns[1]:.3f} s), K3 launches {dec_launches[0]}, K1 launches {dec_launches[1]}; "
-          f"every file's planes equal the CPU port's ({cpu_dec_s:.3f} s on the CPU), Y-PSNR > 30 dB; "
-          f"on {smi}", flush=True)
+          f"{reruns[0]:.3f} / {reruns[1]:.3f} s), K3 launches {dec_launches[0]}, K4 launches {k4_launches}, "
+          f"K1 launches {dec_launches[1]}; every file's planes equal the CPU port's ({cpu_dec_s:.3f} s on the "
+          f"CPU), Y-PSNR > 30 dB; on {smi}", flush=True)
     wall, device = profile_device(lambda: [decode(data, device=dev) for data in files])
     busy = sum(device.values()) / 1e3
     k3_main = kernel_ms(device, "decode_wavefront_kernel", BATCH * groups_per_frame())
+    k4_main = kernel_ms(device, "loop_filter_kernel", BATCH * groups_per_frame())
     print(f"[decode] under torch.profiler: wall {wall:.3f} s, device busy {busy:.4f} s "
-          f"({100 * busy / wall:.2f}%), K3 device {per_launch(device, k3_main, 'decode_wavefront_kernel')} per launch;"
-          f" top device entries: "
+          f"({100 * busy / wall:.2f}%), K3 device {per_launch(device, k3_main, 'decode_wavefront_kernel')} per launch, "
+          f"K4 device {per_launch(device, k4_main, 'loop_filter_kernel')} per launch; top device entries: "
           + ", ".join(f"{k[:60]} {v:.3f} ms" for k, v in sorted(device.items(), key=lambda kv: -kv[1])[:6]),
           flush=True)
-    entropy_s, dec_device_s = decode_split(frame, recon, files, dev)
-    print(f"[decode] split of the same files: host entropy decoding alone {entropy_s:.3f} s; device stage "
-          f"alone (upload, {BATCH * groups_per_frame()} K3 launches, the filters, fetch) {dec_device_s:.3f} s; "
-          f"on {smi}", flush=True)
+    # the device stage with and without the filters, 3 runs each in turns
+    splits = {True: [], False: []}
+    for run in range(3):
+        for with_filters in (True, False)[:: 1 if run % 2 == 0 else -1]:
+            splits[with_filters].append(decode_split(frame, recon, files, dev, with_filters))
+    entropy = [e for e, _ in splits[True] + splits[False]]
+    print(f"[decode] split of the same files: host entropy decoding alone {spread(entropy)}; device stage "
+          f"alone (upload, {BATCH * groups_per_frame()} K3 launches, {BATCH * groups_per_frame()} K4 launches, "
+          f"fetch) {spread([d for _, d in splits[True]])}; the same without the filters "
+          f"{spread([d for _, d in splits[False]])}; in turns; on {smi}", flush=True)
+    # two files at q50: deblocking and CDEF both on
+    q50_files = encode_batch(imgs[:2], quality=50, speed=SPEED, codec="native", device=dev)
+    filters.loop_filter.launches = 0
+    q50_card = [decode(data, device=dev) for data in q50_files]
+    torch.cuda.synchronize()
+    if filters.loop_filter.launches != 2 * groups_per_frame():
+        raise AssertionError(f"q50 decode: K4 launches {filters.loop_filter.launches}, "
+                             f"expected {2 * groups_per_frame()}")
+    for i, (data, img) in enumerate(zip(q50_files, q50_card)):
+        coded = frame._parse_own_format(primary_obus(data))
+        if not (coded.deblock and coded.cdef):
+            raise AssertionError(f"q50 file {i}: deblock {coded.deblock}, cdef {coded.cdef}")
+        same_planes(img, decode(data, device="cpu"), f"q50 file {i}: card decode vs CPU decode")
+    print(f"[decode] 2 files at q50 (deblocking and CDEF on): K4 launches {2 * groups_per_frame()}, planes "
+          f"equal the CPU port's, Y-PSNR {y_psnr(q50_card[0], imgs[0]):.4f} / {y_psnr(q50_card[1], imgs[1]):.4f} "
+          f"dB", flush=True)
 
     # 7. RD tables, card against CPU
     qindex = _spec_qindex(FrameParams(quality=QUALITY))
@@ -1710,7 +1880,7 @@ def main() -> int:
     check_cli(smi)
 
     # 18. the multi-device codec: the batched route, the dry run, host-sharded GOPs, the trace
-    batch_k2, batch_k3, batched = check_multi_device(api, frame, files, on_card, dev, smi, cuda_kernels,
+    batch_k2, batch_k3, batch_k4, batched = check_multi_device(api, frame, files, on_card, dev, smi, cuda_kernels,
                                                      wavefront, recon, tables)
 
     def batched_numbers(kernel_name: str, launches: int) -> dict:
@@ -1768,6 +1938,24 @@ def main() -> int:
             "library_ms": None,
             "chroma": k3["chroma"],
             "batched": batched_numbers("decode_wavefront_kernel", batch_k3),
+        },
+        {
+            "name": "loop_filter",
+            "route": "cuda",
+            "source": "libavif_tpu_torch/csrc/loop_filter.cu",
+            "replaces": "libavif_tpu/ops/filters.py:95",
+            "launches": k4_launches,  # phase 6: the 8 files decoded on the card
+            "max_abs_err": k4["luma"]["max_abs_err"],  # over phase 3d's cases
+            "ms": k4["luma"]["ms"],  # one launch: the 768x512 luma plane at q75 (CDEF)
+            "call_ms": k4["luma"]["call_ms"],
+            "plain_ms": k4["luma"]["plain_ms"],
+            "bound_ms": k4["luma"]["bound_ms"],
+            "bound_by": k4["luma"]["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes either filter
+            "chroma": k4["chroma"],
+            "q50": k4["luma q50"],  # deblocking and CDEF
+            # phase 18: the 8-stream decode as one launch per plane group (luma P = 8, chroma P = 16)
+            "batched": {"launches": batch_k4, "luma": k4["luma batched"], "chroma": k4["chroma batched"]},
         },
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,7 +21,9 @@ kernel launch per plane group on a CUDA tensor: K2 on encode
 (``csrc/encode_wavefront.cu``) and K3 on decode
 (``csrc/decode_wavefront.cu``, which also synthesises each block's
 residual with its signalled inverse transform), both through
-``ops/wavefront.py``. A CPU tensor takes each kernel's plain version,
+``ops/wavefront.py``; the decoder's in-loop filters are one K4 launch per
+plane group (``csrc/loop_filter.cu``, through ``ops/filters.loop_filter``).
+A CPU tensor takes each kernel's plain version,
 which reads each block's neighbours back from the reconstruction already
 written; ``encode_plane_with`` runs the plain per-diagonal encode step on
 the JAX package's carry.
@@ -39,7 +41,7 @@ import numpy as np
 import torch
 
 from ..ops import wavefront
-from ..ops.filters import cdef_plane, deblock_plane
+from ..ops.filters import loop_filter
 from ..ops.intra import (
     D45_PRED,
     D135_PRED,
@@ -279,8 +281,8 @@ def decode_frame_device(packed: torch.Tensor, dc_step: int, ac_step: int, debloc
     reconstructed padded planes there, uint8 for 8-bit and int16 for
     deeper planes. Same-geometry planes of every frame decode as one
     batch (one K3 launch on a CUDA tensor per plane group); ``deblock``/
-    ``cdef`` apply the in-loop filters, once over that batch (whole-plane
-    passes, each plane on its own)."""
+    ``cdef`` apply the in-loop filters, once over that batch (one K4
+    launch on a CUDA tensor per plane group, each plane on its own)."""
     batch, squeeze = _as_planes(packed, 1)
     f = batch.shape[0]
     out_dtype = torch.uint8 if depth == 8 else torch.int16
@@ -295,10 +297,8 @@ def decode_frame_device(packed: torch.Tensor, dc_step: int, ac_step: int, debloc
         planes = decode_plane(
             levels, modes, dc_step, ac_step, txs, n=n, depth=depth, lossless=lossless
         )
-        if deblock:
-            planes = deblock_plane(planes, deblock_thresh, n=n)
-        if cdef:
-            planes = cdef_plane(planes, cdef_thresh)
+        if deblock or cdef:
+            planes = loop_filter(planes, deblock_thresh, cdef_thresh, n=n, deblock=deblock, cdef=cdef)
         planes = planes.reshape(f, len(idxs), -1).to(out_dtype)
         for k, i in enumerate(idxs):
             results[i] = planes[:, k]

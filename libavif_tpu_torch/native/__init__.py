@@ -9,7 +9,9 @@ back automatically when the toolchain is unavailable
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import pathlib
@@ -53,8 +55,27 @@ _CXXFLAGS = _CXXFLAGS + _simd_flags()
 def _build(so_path: pathlib.Path) -> None:
     # generic -O3 measured FASTER here than -march=native/x86-64-v3 (the
     # walk is branchy scalar integer code; wide-vector codegen loses)
-    cmd = ["g++", *_CXXFLAGS, "-shared", "-fPIC", str(_SRC), "-o", str(so_path)]
-    subprocess.run(cmd, check=True, capture_output=True, timeout=300)
+    # Compile to a private name in the same directory, then rename: another
+    # process never loads a half-written library.
+    tmp = so_path.with_name(f"{so_path.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = ["g++", *_CXXFLAGS, "-shared", "-fPIC", str(_SRC), "-o", str(tmp)]
+    try:
+        subprocess.run(cmd, check=True, capture_output=True, timeout=300)
+        os.replace(tmp, so_path)
+    finally:
+        tmp.unlink(missing_ok=True)
+
+
+@contextlib.contextmanager
+def _file_lock(path: pathlib.Path):
+    """An exclusive lock on ``path`` (created if missing), held against
+    other processes and other open descriptions of the file."""
+    with open(path, "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
 
 
 def load():
@@ -78,7 +99,11 @@ def load():
             tag = h.hexdigest()[:16]
             so_path = _DIR / f"_msac_{tag}.so"
             if not so_path.exists():
-                _build(so_path)
+                # One build among concurrent processes: the others wait
+                # here, then find the library renamed into place.
+                with _file_lock(so_path.with_name(so_path.name + ".lock")):
+                    if not so_path.exists():
+                        _build(so_path)
             lib = ctypes.CDLL(str(so_path))
             lib.avt_encode_tile.restype = ctypes.c_long
             lib.avt_encode_tile.argtypes = [

@@ -1,17 +1,28 @@
 """In-loop reconstruction filters: deblocking and the CDEF stage.
 
-Port of ``libavif_tpu/ops/filters.py`` as plain PyTorch (whole-plane
-int32 stencils; XLA programs on the TPU, not Pallas kernels). Both work
-on (..., H, W) int32 planes, so same-geometry planes filter as one batch.
-Intra prediction reads the unfiltered reconstruction; these run once per
-decoded plane, identically in every decoder.
+Port of ``libavif_tpu/ops/filters.py`` (whole-plane int32 stencils; XLA
+programs on the TPU, not Pallas kernels). Intra prediction reads the
+unfiltered reconstruction; these run once per decoded plane, identically
+in every decoder.
+
+K4, ``loop_filter``: both filters over a (P, H, W) stack of same-geometry
+planes in one launch on a CUDA tensor (``csrc/loop_filter.cu``), where
+XLA fused the JAX package's passes into the decoder's program and eager
+PyTorch took about 300 launches. A CPU tensor takes
+``loop_filter_reference``: ``deblock_plane`` then ``cdef_plane``, the
+plain versions, which work on (..., H, W) planes and which the CPU tests
+hold against the JAX package.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..tables import cdef_threshold, deblock_threshold  # noqa: F401  (re-exported)
+from . import _build
+from .cuda_kernels import TX_SIZES
 
 
 def _filter_columns(plane: torch.Tensor, idx: torch.Tensor, thresh: int) -> torch.Tensor:
@@ -37,8 +48,9 @@ def deblock_plane(plane: torch.Tensor, thresh: int, *, n: int) -> torch.Tensor:
     """Deblock (..., H, W) int32 planes across n-aligned boundaries
     (thresh 0 disables)."""
     h, w = plane.shape[-2:]
-    cols = torch.arange(n, w - 1, n, device=plane.device)
-    rows = torch.arange(n, h - 1, n, device=plane.device)
+    # jnp.arange's empty ranges: a plane at most n + 1 wide has no boundary
+    cols = torch.arange(n, max(n, w - 1), n, device=plane.device)
+    rows = torch.arange(n, max(n, h - 1), n, device=plane.device)
     if cols.numel():
         plane = _filter_columns(plane, cols, thresh)
     if rows.numel():
@@ -110,3 +122,58 @@ def cdef_plane(plane: torch.Tensor, thresh: int) -> torch.Tensor:
     for i, f in enumerate(filtered):
         out = torch.where(best_px == i, f, out)
     return out[..., :h, :w]
+
+
+def loop_filter_reference(planes: torch.Tensor, deblock_thresh: int, cdef_thresh: int, *, n: int,
+                          deblock: bool, cdef: bool) -> torch.Tensor:
+    """Plain PyTorch version of K4: ``deblock_plane`` when ``deblock``,
+    then ``cdef_plane`` on the result when ``cdef``."""
+    if deblock:
+        planes = deblock_plane(planes, deblock_thresh, n=n)
+    if cdef:
+        planes = cdef_plane(planes, cdef_thresh)
+    return planes
+
+
+class _LoopFilterParams(ctypes.Structure):
+    """Mirror of ``LoopFilterParams`` in ``csrc/loop_filter.cu``."""
+
+    _fields_ = [(name, ctypes.c_int) for name in
+                ("p", "h", "w", "n", "deblock_thresh", "cdef_thresh", "deblock", "cdef")]
+
+
+def loop_filter(planes: torch.Tensor, deblock_thresh: int, cdef_thresh: int, *, n: int,
+                deblock: bool, cdef: bool) -> torch.Tensor:
+    """K4 wrapper: the in-loop filters of every plane of ``planes`` ((P, H,
+    W) int32, n-aligned deblocking boundaries), as ``loop_filter_reference``
+    computes them; returns (P, H, W) int32. A CUDA tensor takes one launch
+    on the current stream, whichever filters are on, into a new tensor; a
+    CPU tensor takes the plain version."""
+    if planes.dtype != torch.int32:
+        raise TypeError(f"loop_filter takes int32 planes, got {planes.dtype}")
+    if planes.dim() != 3:
+        raise ValueError(f"loop_filter takes (P, H, W) planes, got {tuple(planes.shape)}")
+    if n not in TX_SIZES:
+        raise ValueError(f"loop_filter: block size {n} not in {TX_SIZES}")
+    if planes.device.type == "cpu":
+        return loop_filter_reference(planes, deblock_thresh, cdef_thresh, n=n, deblock=deblock, cdef=cdef)
+    if planes.device.type != "cuda":
+        raise ValueError(f"loop_filter runs on cuda or cpu, not {planes.device}")
+    if not planes.is_contiguous():
+        raise ValueError("loop_filter takes contiguous planes")
+    out = torch.empty_like(planes)
+    if planes.numel() == 0:
+        return out
+    prm = _LoopFilterParams(*planes.shape, n, int(deblock_thresh), int(cdef_thresh), int(bool(deblock)),
+                            int(bool(cdef)))
+    lib = _build.load()
+    with _build.on_device(planes.device):
+        rc = lib.avt_loop_filter(ctypes.byref(prm), planes.data_ptr(), out.data_ptr(),
+                                 torch.cuda.current_stream(planes.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"loop_filter launch failed: CUDA error {rc}")
+    loop_filter.launches += 1
+    return out
+
+
+loop_filter.launches = 0

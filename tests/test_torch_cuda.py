@@ -1,5 +1,5 @@
-"""Tests that need an NVIDIA GPU: K1, K2 and K3 (the encode and decode wavefronts), the
-own-format path (per frame, and batched through a one-device codec mesh), the spec path's RD
+"""Tests that need an NVIDIA GPU: K1, K2 and K3 (the encode and decode wavefronts), K4 (the
+in-loop filters), the own-format path (per frame, and batched through a one-device codec mesh), the spec path's RD
 pre-pass, the pixel pipeline and animations on the card, each held against the port's own plain
 PyTorch path on the CPU.
 
@@ -21,7 +21,7 @@ from libavif_tpu_torch.codec import recon
 from libavif_tpu_torch.codec.av1 import rdsearch_device
 from libavif_tpu_torch.constants import ChromaUpsampling, MatrixCoefficients, PixelFormat, Range
 from libavif_tpu_torch.image import Image
-from libavif_tpu_torch.ops import cuda_kernels, wavefront
+from libavif_tpu_torch.ops import cuda_kernels, filters, wavefront
 from libavif_tpu_torch.parallel import shard
 from libavif_tpu_torch.pixels import reformat
 
@@ -483,3 +483,59 @@ def test_spec_gop_runs_the_rd_program_on_the_card(cuda, monkeypatch):
     for img, src in zip(d.read_all(), frames):
         err = img.yuv_planes[0].astype(np.float64) - src.yuv_planes[0]
         assert 10 * np.log10(255.0**2 / max(np.mean(err * err), 1e-12)) > 30
+
+
+def _filter_planes(seed, shape, n, depth):
+    """(P, H, W) int32 planes: a ramp, a step per n x n block a quantizer
+    could leave, noise and a few hard edges (also the CPU tests' planes,
+    tests/test_torch_filters.py)."""
+    rng = np.random.default_rng(seed)
+    p, h, w = shape
+    maxv = (1 << depth) - 1
+    scale = 1 << (depth - 8)
+    yy, xx = np.mgrid[0:h, 0:w]
+    steps = rng.integers(0, 10 * scale, (p, -(-h // n), -(-w // n)))[:, yy // n, xx // n]
+    edges = (rng.random((p, h, w)) < 0.02) * rng.integers(-60 * scale, 60 * scale, (p, h, w))
+    base = (yy * 3 + xx * 2) * (maxv // 255) // 4
+    planes = np.clip(base + steps + edges + rng.integers(-scale, scale + 1, (p, h, w)), 0, maxv)
+    return np.ascontiguousarray(planes, dtype=np.int32)
+
+
+# (P, H, W) per block size n: n = 4 planes 4 mod 8, shapes off the block
+# grid, planes one block wide (no boundary at all).
+_FILTER_SHAPES = {
+    4: [(3, 36, 44), (1, 20, 12), (2, 4, 4)],
+    8: [(3, 37, 53), (2, 40, 24), (1, 5, 300)],
+    16: [(3, 48, 33), (1, 16, 16)],
+    32: [(3, 64, 45), (1, 32, 32)],
+}
+
+
+# On the card also the batched chroma stack (P = 16) and a 4032x3024 plane.
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,depth,shape", [
+    (n, depth, shape) for n, shapes in _FILTER_SHAPES.items() for depth in (8, 10, 12) for shape in shapes
+] + [(16, 8, (16, 256, 384)), (16, 8, (1, 3024, 4032))])
+def test_loop_filter_kernel_matches_plain_version(cuda, n, depth, shape):
+    planes = torch.from_numpy(_filter_planes(n * 100 + depth, shape, n, depth)).to(cuda)
+    for dt, ct in ((0, 0), (2, 2), (16 << (depth - 8), 12 << (depth - 8)), (-3, -3)):
+        for deblock, cdef in ((True, False), (False, True), (True, True), (False, False)):
+            before = filters.loop_filter.launches
+            got = filters.loop_filter(planes, dt, ct, n=n, deblock=deblock, cdef=cdef)
+            torch.cuda.synchronize()
+            assert filters.loop_filter.launches - before == 1
+            want = filters.loop_filter_reference(planes, dt, ct, n=n, deblock=deblock, cdef=cdef)
+            assert torch.equal(got, want), (dt, ct, deblock, cdef)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quality", [75, 50])
+def test_decode_runs_one_loop_filter_launch_per_plane_group(cuda, quality):
+    """A q75 file (CDEF) and a q50 file (deblocking and CDEF) decode on the
+    card with one K4 launch per plane group, equal to the CPU's planes."""
+    [data] = api.encode_batch(_frames(quality, 1), quality=quality, speed=6, codec="native", device=cuda)
+    before = filters.loop_filter.launches
+    on_card = api.decode(data, device=cuda)
+    assert filters.loop_filter.launches - before == 2
+    for pa, pb in zip(on_card.yuv_planes, api.decode(data, device="cpu").yuv_planes):
+        np.testing.assert_array_equal(pa, pb)

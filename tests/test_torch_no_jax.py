@@ -288,6 +288,44 @@ FIXES = {
         '__import__("libavif_tpu.constants", fromlist=["PixelFormat"])',
         '__import__("libavif_tpu_torch.constants", fromlist=["PixelFormat"])',
     )],
+    # the load race (ROADMAP fault f): the library is compiled to a private
+    # name and renamed into place, and a file lock makes concurrent
+    # processes build it once
+    "native/__init__.py": [
+        ("import ctypes\nimport hashlib\n",
+         "import contextlib\nimport ctypes\nimport fcntl\nimport hashlib\n"),
+        ('    cmd = ["g++", *_CXXFLAGS, "-shared", "-fPIC", str(_SRC), "-o", str(so_path)]\n'
+         "    subprocess.run(cmd, check=True, capture_output=True, timeout=300)\n",
+         "    # Compile to a private name in the same directory, then rename: another\n"
+         "    # process never loads a half-written library.\n"
+         '    tmp = so_path.with_name(f"{so_path.name}.{os.getpid()}.{threading.get_ident()}.tmp")\n'
+         '    cmd = ["g++", *_CXXFLAGS, "-shared", "-fPIC", str(_SRC), "-o", str(tmp)]\n'
+         "    try:\n"
+         "        subprocess.run(cmd, check=True, capture_output=True, timeout=300)\n"
+         "        os.replace(tmp, so_path)\n"
+         "    finally:\n"
+         "        tmp.unlink(missing_ok=True)\n"
+         "\n"
+         "\n"
+         "@contextlib.contextmanager\n"
+         "def _file_lock(path: pathlib.Path):\n"
+         '    """An exclusive lock on ``path`` (created if missing), held against\n'
+         '    other processes and other open descriptions of the file."""\n'
+         '    with open(path, "a") as f:\n'
+         "        fcntl.flock(f, fcntl.LOCK_EX)\n"
+         "        try:\n"
+         "            yield\n"
+         "        finally:\n"
+         "            fcntl.flock(f, fcntl.LOCK_UN)\n"),
+        ("            if not so_path.exists():\n"
+         "                _build(so_path)\n",
+         "            if not so_path.exists():\n"
+         "                # One build among concurrent processes: the others wait\n"
+         "                # here, then find the library renamed into place.\n"
+         '                with _file_lock(so_path.with_name(so_path.name + ".lock")):\n'
+         "                    if not so_path.exists():\n"
+         "                        _build(so_path)\n"),
+    ],
 }
 
 _IMPORT_LINE = re.compile(r"^\s*(from\s+\S+\s+import\b|import\s)")
