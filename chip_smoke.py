@@ -7,9 +7,10 @@ Phases, each printed as it runs; any failure ends the run non-zero:
   1. device: the card's name and power limit, torch and CUDA versions;
      exits non-zero when no CUDA device is available;
   2. build: K1 (libavif_tpu_torch/csrc/transform2d.cu), K2
-     (csrc/encode_wavefront.cu), K3 (csrc/decode_wavefront.cu) and K4
-     (csrc/loop_filter.cu) from the sources, one nvcc per source, in
-     parallel;
+     (csrc/encode_wavefront.cu), K3 with K4's tiles behind it
+     (csrc/decode_wavefront.cu) and K4 alone (csrc/loop_filter.cu, its
+     tile in csrc/loop_filter.cuh) from the sources, one nvcc per source,
+     in parallel;
   3. K1 on the card against its plain PyTorch version, every transform
      type and size, forward and inverse, with inputs that wrap int32;
      both timed at a 768x512 luma plane's shape (1536 blocks of 16x16,
@@ -23,15 +24,16 @@ Phases, each printed as it runs; any failure ends the run non-zero:
      main path's shapes (768x512 luma, P = 1; the 384x256 chroma pair,
      P = 2), CUDA events around the call, the kernel also device-only
      from torch.profiler, against the throughput and the chain bound;
- 3c. K3, the decode wavefront (one persistent launch per plane group,
-     K1's inverse inside it for each block's signalled type), on the card
-     against its plain version (torch.equal) in phase 3b's configurations
-     with the encoder's and with random symbols, hostile symbols, and a
-     plane with more lanes than the cooperative grid; timed per
+ 3c. K3, the decode wavefront (one persistent launch per plane group:
+     every block's residual with K1's inverse for its signalled type, then
+     lane groups of 4 lanes a CTA, two warps a lane), with the filter stage
+     off, on the card against its plain version (torch.equal) in phase 3b's
+     configurations with the encoder's and with random symbols, hostile
+     symbols, and more lane groups than the cooperative grid; timed per
      plane-group launch at 768x512 (luma; the chroma pair), device-only
      from torch.profiler and as a call with CUDA events, with the plain
      version's time, and per block on a plane one block high and one one
-     block wide (the chain link's cost, which gives the chain bound);
+     block wide (this design's link latency, not a bound);
  3d. K4, the in-loop filters (deblocking then CDEF, one launch per plane
      group), on the card against its plain version (torch.equal): random
      planes at n in {4, 8, 16, 32} (n = 4 planes 4 mod 8, planes off the
@@ -42,6 +44,17 @@ Phases, each printed as it runs; any failure ends the run non-zero:
      chroma pair P = 2, batched P = 8 / P = 16; q75's CDEF, and q50's
      deblocking and CDEF on the luma plane), device-only and as a call,
      with the plain version's time, against the bound;
+ 3e. the fused launch (wavefront.decode_filtered: K3 with K4's 32x32
+     tiles behind its wavefront, raster planes out) against the plain
+     versions composed (decode_wavefront_reference, the blocks laid out as
+     planes, loop_filter_reference; torch.equal), each filter alone, both
+     and none: phase 3c's configurations (4032x3024 among them) with the
+     encoder's and random symbols, hostile symbols, more lane groups than
+     the cooperative grid, the gradient batch's symbols at the q75 and q50
+     settings; timed per plane-group launch at the main path's shapes
+     (768x512 luma P = 1, the chroma pair, batched P = 8 / P = 16, q50
+     luma), device-only and as a call, with the plain versions' time,
+     against the bound;
   4. own-format path: 8 frames of 768x512 4:2:0 8-bit through
      libavif_tpu_torch.api.encode_batch(quality=75, speed=6,
      codec="native"): K2 launches 8 x 2 (luma, chroma pair), none of K1;
@@ -50,12 +63,14 @@ Phases, each printed as it runs; any failure ends the run non-zero:
   5. the same first frame encoded on the CPU (plain versions): the .avif
      bytes must be identical;
   6. round trip: decode on the card, equal to the CPU decode; Y-PSNR;
-     the 8 files decoded on the card: K3 and K4 launches 8 x 2 each, none
-     of K1; the same under torch.profiler (device busy share, K3 and K4
-     per launch, the top device entries), and its host entropy decoding
+     the 8 files decoded on the card: fused launches 8 x 2, each with the
+     filter stage (CDEF at q75), no standalone K3 or K4 launch, none of
+     K1; the same under torch.profiler (device busy share, the fused
+     launch's time, the top device entries), and its host entropy decoding
      and device stage timed alone, the device stage also without the
      filters; two frames encoded at q50 (deblocking and CDEF on) decoded
-     on the card with K4 launches 2 x 2, planes equal to the CPU port's;
+     on the card with 2 x 2 fused launches with the filter stage, planes
+     equal to the CPU port's;
   7. RD tables: frame 0's luma plane through the spec encoder's RD
      pre-pass on the card and on the CPU; satd/delta equal (torch.equal),
      dist/rate within the CPU test's tolerance, the count of qcost
@@ -96,11 +111,11 @@ Phases, each printed as it runs; any failure ends the run non-zero:
      to the sequential decode;
  14. own-format animation: the same frames with codec_choice="native":
      K2 launches 8 x 2 and no K1 launch, bytes equal to the CPU
-     port's, read_all on the card (K3 launches 8 x 2) equal to the CPU
-     decode;
+     port's, read_all on the card (fused K3 + K4 launches 8 x 2) equal to
+     the CPU decode;
  15. grid: 2x2 cells of 768x512 (1536x1024) with both codecs: 4 RD runs
      on the card for the spec cells, the own-format cells through K2 and
-     decoded through K3 (4 x 2 launches); the grid decode equals the
+     decoded through the fused launch (4 x 2 launches); the grid decode equals the
      cells decoded one by one;
  16. still variants at 768x512 on the card, read back by
      Decoder(device=card): write_progressive([50, 75]) with both layers
@@ -113,8 +128,9 @@ Phases, each printed as it runs; any failure ends the run non-zero:
      (a) phase 4's batch with set_default_codec_mesh(make_codec_mesh(1))
      over the card: K2 launches 2 for the 8 frames (luma P = 8, chroma
      P = 16), bytes equal to phase 4's; the 8 streams in one
-     decode_frames_pipelined call: K3 and K4 launches 2 each, planes equal
-     to phase 6's; both routes' walls (best and spread of 5 runs, in turns) and the
+     decode_frames_pipelined call: 2 fused launches with the filter stage,
+     no standalone K3, K4 or K1, planes equal to phase 6's; both routes'
+     walls (best and spread of 5 runs, in turns) and the
      batched route's device busy share; one batched K2 and K3 launch per
      plane group against their plain versions (torch.equal), timed per
      launch; then the default mesh is None again;
@@ -514,15 +530,19 @@ def check_decode(wavefront, recon, tables, dev, smi):
     txs = torch.tensor([[[-3, 2], [7, 1]]], dtype=torch.int32, device=dev)
     dc, ac = tables.step_sizes(200, 12)
     compare(levels, modes, txs, wavefront.DecodeConfig(32, 12, False, int(dc), int(ac)), "hostile n=32 depth=12")
-    # more lanes than the cooperative grid holds
+    # more lane groups than the cooperative grid holds: planes of two
+    # groups, the second waiting on the first
     dc, ac = tables.step_sizes(150, 8)  # q75
     cfg = wavefront.DecodeConfig(16, 8, False, int(dc), int(ac))
     grid = wavefront.decode_resident_ctas(cfg, dev)
-    compare(*random_symbols(7, 1, grid + 37, 2, 16, False, dev), cfg, f"{grid + 37} lanes")
+    groups_p = grid // 2 + 3
+    compare(*random_symbols(7, groups_p, 2 * wavefront.LANES_PER_CTA, 3, 16, False, dev), cfg,
+            f"{2 * groups_p} lane groups")
     photo_lanes = -(-PHOTO_H // 16)
     print(f"[k3] {cases} cases equal to the plain version (torch.equal), one launch each: phase 3b's "
           f"configurations with the encoder's and with random symbols, hostile symbols, {PHOTO_W}x{PHOTO_H} "
-          f"({photo_lanes} lanes), and {grid + 37} lanes on a cooperative grid of {grid} CTAs at n=16", flush=True)
+          f"({photo_lanes} lanes), and {2 * groups_p} lane groups of {wavefront.LANES_PER_CTA} lanes on a "
+          f"cooperative grid of {grid} CTAs at n=16", flush=True)
 
     numbers = {}
     for name, (h, w), p in (("luma", (H, W), 1), ("chroma", (H // 2, W // 2), 2)):
@@ -544,16 +564,17 @@ def check_decode(wavefront, recon, tables, dev, smi):
         dev_ms, source = device_ms(kernel, "decode_wavefront_kernel", wavefront.decode_wavefront, 20)
         bound, bound_by = decode_bound_ms(p, rb, cb, 16)
         numbers[name] = dict(ms=dev_ms, call_ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, bound_ms=bound,
-                             bound_by=bound_by, diagonals=rb + cb - 1)
+                             bound_by=bound_by)
         print(f"[k3] {name} {w}x{h} P={p} n=16 q{QUALITY}: per launch (the whole plane group) kernel device "
               f"{dev_ms:.5f} ms ({source}), call "
               f"{(k1 + k2) / 2:.5f} ms (runs {k1:.5f}/{k2:.5f}), plain version {(p1 + p2) / 2:.5f} ms (runs "
               f"{p1:.5f}/{p2:.5f}); throughput bound {bound:.6f} ms ({bound_by}); CUDA events, order plain, "
               f"kernel, kernel, plain; on {smi}", flush=True)
 
-    # The chain link's cost: a plane one block high (one CTA walks its own
-    # lane and never waits) against one a block wide (every block waits
-    # for the lane above, on another SM).
+    # The design's link latency: a plane one block high (one lane, each
+    # block after its left neighbour) against one a block
+    # wide (each block after the one above: a shared-memory handoff inside
+    # a lane group, a device-memory one between groups).
     per_block = {}
     for name, (h, w) in (("row", (16, W)), ("column", (H, 16))):
         src = seeded_planes(5, 8, (h, w), 16, 1).to(dev)
@@ -567,19 +588,20 @@ def check_decode(wavefront, recon, tables, dev, smi):
         call = time_ms(run, 50) / blocks
         dev_ms, _ = device_ms(run, "decode_wavefront_kernel", wavefront.decode_wavefront, 20)
         per_block[name] = (call, dev_ms / blocks)
-    link = per_block["column"][1]
     for name in numbers:
-        numbers[name]["chain_bound_ms"] = numbers[name].pop("diagonals") * link
+        numbers[name]["link_us"] = {"row": per_block["row"][1] * 1e3, "column": per_block["column"][1] * 1e3}
         numbers[name]["max_abs_err"] = worst
 
     def us(v):
         return f"{v * 1e3:.3f} us"
 
-    print(f"[k3] per 16x16 block: {us(per_block['row'][1])} device, {us(per_block['row'][0])} call in a lane "
-          f"of {W // 16} (no wait); {us(per_block['column'][1])} device, {us(per_block['column'][0])} call in a "
-          f"column of {H // 16} (a wait on another SM at each block); chain bound = diagonals x the column's "
-          f"per-block device time: luma {numbers['luma']['chain_bound_ms']:.5f} ms, chroma pair "
-          f"{numbers['chroma']['chain_bound_ms']:.5f} ms; on {smi}", flush=True)
+    groups = -(-(H // 16) // wavefront.LANES_PER_CTA)
+    print(f"[k3] link latency of this design (not a bound), per 16x16 block, the launch's fixed cost "
+          f"included: {us(per_block['row'][1])} device, {us(per_block['row'][0])} call in a lane of {W // 16} "
+          f"(each block after its left neighbour, one lane); {us(per_block['column'][1])} device, "
+          f"{us(per_block['column'][0])} call in a column of {H // 16} (each block after the one above: "
+          f"{H // 16 - groups} handoffs through shared memory, {groups - 1} through device memory); on {smi}",
+          flush=True)
     return numbers
 
 
@@ -592,16 +614,21 @@ CDEF_OPS_PER_PX = 4 * 3 + 20 + 4
 DEBLOCK_OPS_PER_EDGE = 32
 
 
-def filter_bound_ms(p: int, h: int, w: int, n: int, deblock: bool, cdef: bool) -> tuple:
-    """(bound ms, 'operations' or 'bytes') of one K4 launch over p h x w
-    planes: every plane read once and written once (int32) over HBM,
-    against the int32 operations the output needs over the card's rate."""
+def filter_ops(p: int, h: int, w: int, n: int, deblock: bool, cdef: bool) -> int:
+    """The int32 operations the filters' output needs over p h x w planes."""
     ops = 0
     if cdef:
         ops += CDEF_OPS_PER_PX * p * (-(-h // 8) * 8) * (-(-w // 8) * 8)
     if deblock:
         ops += DEBLOCK_OPS_PER_EDGE * p * (h * len(range(n, w - 1, n)) + w * len(range(n, h - 1, n)))
-    ops_ms = ops / IMAD_PER_S * 1e3
+    return ops
+
+
+def filter_bound_ms(p: int, h: int, w: int, n: int, deblock: bool, cdef: bool) -> tuple:
+    """(bound ms, 'operations' or 'bytes') of one K4 launch over p h x w
+    planes: every plane read once and written once (int32) over HBM,
+    against the int32 operations the output needs over the card's rate."""
+    ops_ms = filter_ops(p, h, w, n, deblock, cdef) / IMAD_PER_S * 1e3
     bytes_ms = 2 * 4 * p * h * w / HBM_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
@@ -702,6 +729,130 @@ def check_loop_filter(filters, frame, recon, dev, smi):
               f"{dev_ms:.5f} ms ({source}), call {(k1 + k2) / 2:.5f} ms (runs {k1:.5f}/{k2:.5f}), plain "
               f"version {(p1 + p2) / 2:.5f} ms (runs {p1:.5f}/{p2:.5f}); bound {bound:.6f} ms ({bound_by}); "
               f"CUDA events, order plain, kernel, kernel, plain; on {smi}", flush=True)
+    return numbers
+
+
+def fused_bound_ms(p: int, rb: int, cb: int, n: int, deblock: bool, cdef: bool) -> tuple:
+    """(bound ms, 'operations' or 'bytes') of one fused launch over a plane
+    group: levels, mode and transform symbols read and the (P, Rb*n, Cb*n)
+    planes written once (int32), with the counters, over HBM, against the
+    inverse transform's int32 multiply-adds (two passes of n^3 a block,
+    the signalled type only) and the filters' operations (filter_ops) over
+    the card's rate."""
+    blocks = p * rb * cb
+    ops = 2 * blocks * n**3 + filter_ops(p, rb * n, cb * n, n, deblock, cdef)
+    nbytes = 4 * (2 * blocks * n * n + 2 * blocks + p * rb + 3)
+    ops_ms, bytes_ms = ops / IMAD_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def check_fused(wavefront, recon, frame, tables, dev, smi):
+    """Phase 3e: the fused launch (K3 with K4's tiles behind its
+    wavefront, ``wavefront.decode_filtered``) against the composition of
+    the plain versions (``decode_wavefront_reference``, the blocks laid out
+    as planes, ``loop_filter_reference``), torch.equal, each filter alone,
+    both and none; timed per plane-group launch at the main path's shapes.
+    Returns the kernels line's numbers."""
+    from libavif_tpu_torch.ops import filters
+
+    worst, cases = 0, 0
+    settings = ((False, False), (True, False), (False, True), (True, True))
+
+    def compare(levels, modes, txs, cfg, dt, ct, what):
+        nonlocal worst, cases
+        rec = torch.empty(levels.shape, dtype=torch.int32, device=dev)
+        wavefront.decode_wavefront_reference(levels, modes, txs, rec, cfg)
+        base = wavefront.blocks_to_plane(rec)
+        for deblock, cdef in settings:
+            before = wavefront.decode_filtered.launches
+            got = wavefront.decode_filtered(levels, modes, txs, cfg, dt, ct, deblock=deblock, cdef=cdef)
+            torch.cuda.synchronize()
+            if wavefront.decode_filtered.launches - before != 1:
+                raise AssertionError(f"fused: {wavefront.decode_filtered.launches - before} launches for one group")
+            want = filters.loop_filter_reference(base, dt, ct, n=cfg.n, deblock=deblock, cdef=cdef)
+            diff = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) if got.numel() else 0
+            worst = max(worst, diff)
+            cases += 1
+            if not torch.equal(got, want):
+                raise AssertionError(f"the fused launch differs from the plain versions: {what}, thresholds "
+                                     f"{dt}/{ct} deblock={deblock} cdef={cdef}, max|diff| {diff}")
+
+    # phase 3c's configurations: the encoder's symbols at the frame layer's
+    # thresholds (the largest when lossless), random ones at the largest
+    for n, depth, lossless, speed, search, shape, p in step_configs():
+        src = seeded_planes(n * 7 + depth, depth, shape, n, p).to(dev)
+        dc, ac = (1, 1) if lossless else tables.step_sizes(150, depth)
+        cfg = wavefront.DecodeConfig(n, depth, lossless, int(dc), int(ac))
+        modes, levels, _, txs = recon.encode_plane(src, dc, ac, n=n, depth=depth, lossless=lossless,
+                                                   speed=speed, search=search)
+        top = (16 << (depth - 8), 12 << (depth - 8))
+        dt, ct = top if lossless else (tables.deblock_threshold(ac, depth), tables.cdef_threshold(ac, depth))
+        what = f"n={n} depth={depth} lossless={lossless} speed={speed} search={search} {shape} P={p}"
+        compare(levels, modes, txs, cfg, dt, ct, f"encoded {what}")
+        compare(*random_symbols(n * 7 + depth + 1, p, *modes.shape[1:], n, lossless, dev), cfg, *top,
+                f"random {what}")
+    # hostile symbols
+    rng = np.random.default_rng(4)
+    levels = torch.from_numpy(rng.integers(-32768, 32769, (1, 2, 3, 32, 32)).astype(np.int32)).to(dev)
+    modes = torch.tensor([[[-50, 3, 7], [12, 200, -1]]], dtype=torch.int32, device=dev)
+    txs = torch.tensor([[[-3, 2, 4], [7, 1, 0]]], dtype=torch.int32, device=dev)
+    dc, ac = tables.step_sizes(200, 12)
+    compare(levels, modes, txs, wavefront.DecodeConfig(32, 12, False, int(dc), int(ac)), 64, 48, "hostile n=32")
+    # more lane groups than the cooperative grid holds
+    dc, ac = tables.step_sizes(150, 8)
+    cfg = wavefront.DecodeConfig(16, 8, False, int(dc), int(ac))
+    grid = wavefront.decode_resident_ctas(cfg, dev, filters=True)
+    groups_p = grid // 2 + 3
+    compare(*random_symbols(8, groups_p, 2 * wavefront.LANES_PER_CTA, 3, 16, False, dev), cfg, 16, 12,
+            f"{2 * groups_p} lane groups")
+    # the gradient batch's symbols at the q75 and q50 own-format settings
+    imgs = gradient_frames()
+    coded = {}
+    for quality in (QUALITY, 50):
+        params = frame.FrameParams(quality=quality, speed=SPEED, codec="native")
+        dc, ac = frame.step_sizes(params.qindex, 8)
+        dt, ct = frame.deblock_threshold(ac, 8), frame.cdef_threshold(ac, 8)
+        cfg = wavefront.DecodeConfig(16, 8, False, int(dc), int(ac))
+        for name, planes in (("luma", [im.yuv_planes[0] for im in imgs]),
+                             ("chroma", [im.yuv_planes[c] for im in imgs for c in (1, 2)])):
+            src = torch.from_numpy(np.stack([recon.pad_to_blocks(q, 16) for q in planes]).astype(np.int32)).to(dev)
+            modes, levels, _, txs = recon.encode_plane(src, dc, ac, n=16, depth=8, lossless=False, speed=SPEED)
+            compare(levels, modes, txs, cfg, dt, ct, f"gradient batch q{quality} {name} P={modes.shape[0]}")
+            coded[quality, name] = (levels, modes, txs, cfg, dt, ct, params.deblock_enabled, params.cdef_enabled)
+    print(f"[fused] {cases} cases equal to the plain versions composed (torch.equal), one launch each: phase "
+          f"3c's configurations with the encoder's and random symbols ({PHOTO_W}x{PHOTO_H} among them), hostile "
+          f"symbols, {2 * groups_p} lane groups on a cooperative grid of {grid} CTAs, the gradient batch at "
+          f"q{QUALITY} and q50 (luma P = {BATCH}, chroma P = {2 * BATCH}); each filter alone, both and none",
+          flush=True)
+
+    numbers = {}
+    shapes = (("luma", QUALITY, 1), ("chroma", QUALITY, 2), ("luma batched", QUALITY, BATCH),
+              ("chroma batched", QUALITY, 2 * BATCH), ("luma q50", 50, 1))
+    for name, quality, p in shapes:
+        levels, modes, txs, cfg, dt, ct, deblock, cdef = coded[quality, name.split()[0]]
+        levels, modes, txs = levels[:p].contiguous(), modes[:p].contiguous(), txs[:p].contiguous()
+        _, rb, cb = modes.shape
+
+        def kernel():
+            wavefront.decode_filtered(levels, modes, txs, cfg, dt, ct, deblock=deblock, cdef=cdef)
+
+        def plain():
+            wavefront.decode_filtered_reference(levels, modes, txs, cfg, dt, ct, deblock=deblock, cdef=cdef)
+
+        p1 = time_ms(plain, 2)
+        k1 = time_ms(kernel, 50)
+        k2 = time_ms(kernel, 50)
+        p2 = time_ms(plain, 2)
+        dev_ms, source = device_ms(kernel, "decode_wavefront_kernel", wavefront.decode_filtered, 20)
+        bound, bound_by = fused_bound_ms(p, rb, cb, 16, deblock, cdef)
+        numbers[name] = dict(ms=dev_ms, call_ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, bound_ms=bound,
+                             bound_by=bound_by, max_abs_err=worst)
+        on = "+".join(f for f, o in (("deblock", deblock), ("cdef", cdef)) if o)
+        print(f"[fused] {name} {cb * 16}x{rb * 16} P={p} q{quality} ({on}, thresholds {dt}/{ct}): per launch "
+              f"(the whole plane group, residuals, wavefront and filters) device {dev_ms:.5f} ms ({source}), "
+              f"call {(k1 + k2) / 2:.5f} ms (runs {k1:.5f}/{k2:.5f}), plain versions composed "
+              f"{(p1 + p2) / 2:.5f} ms (runs {p1:.5f}/{p2:.5f}); bound {bound:.6f} ms ({bound_by}); CUDA events, "
+              f"order plain, kernel, kernel, plain; on {smi}", flush=True)
     return numbers
 
 
@@ -1113,15 +1264,16 @@ def check_native_animation(api, cuda_kernels, wavefront, frames, dev, smi):
     for device in (dev, "cpu"):
         d = api.Decoder(device=device)
         d.parse(data)
-        wavefront.decode_wavefront.launches = 0
+        wavefront.decode_filtered.launches = 0
         t0 = time.perf_counter()
         decoded.append(d.read_all())
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         if device == dev:
-            k3_launches = wavefront.decode_wavefront.launches
+            k3_launches = wavefront.decode_filtered.launches
     if k3_launches != BATCH * groups_per_frame():
-        raise AssertionError(f"read_all on the card: K3 launches {k3_launches}, expected {BATCH * groups_per_frame()}")
+        raise AssertionError(f"read_all on the card: K3 (+K4) launches {k3_launches}, expected "
+                             f"{BATCH * groups_per_frame()}")
     for k, (a, b) in enumerate(zip(*decoded)):
         same_planes(a, b, f"own-format read_all frame {k}, card vs CPU")
     if len(decoded[0]) != BATCH:
@@ -1130,7 +1282,7 @@ def check_native_animation(api, cuda_kernels, wavefront, frames, dev, smi):
     mp = BATCH * W * H / 1e6
     print(f"[anim] native {BATCH} x {W}x{H} q{QUALITY} s{SPEED}: encode {enc_s:.3f} s ({mp / enc_s:.4f} MP/s), "
           f"K2 launches {launches[0]}, K1 launches {launches[1]}, {len(data)} bytes equal to the CPU port's ({cpu_s:.3f} s); read_all "
-          f"card {times[0]:.3f} s ({mp / times[0]:.4f} MP/s, K3 launches {k3_launches}) equals CPU ({times[1]:.3f} s); Y-PSNR min "
+          f"card {times[0]:.3f} s ({mp / times[0]:.4f} MP/s, K3 (+K4) launches {k3_launches}) equals CPU ({times[1]:.3f} s); Y-PSNR min "
           f"{p:.4f} dB; on {smi}", flush=True)
 
 
@@ -1156,13 +1308,13 @@ def check_grid(api, rdsearch_device, cuda_kernels, wavefront, frames, dev, smi):
         want = ({torch.device(dev).type: 4}, (0, 0)) if codec == "auto" else ({}, (4 * groups_per_frame(), 0))
         if (rd, launches) != want:
             raise AssertionError(f"{codec} grid: RD runs {rd}, K2, K1 launches {launches}, expected {want}")
-        wavefront.decode_wavefront.launches = 0
+        wavefront.decode_filtered.launches = 0
         t0 = time.perf_counter()
         out = api.Decoder(device=dev).read(data)
         dec_s = time.perf_counter() - t0
-        k3_launches = wavefront.decode_wavefront.launches
+        k3_launches = wavefront.decode_filtered.launches
         if k3_launches != (0 if codec == "auto" else 4 * groups_per_frame()):
-            raise AssertionError(f"{codec} grid decode: K3 launches {k3_launches}")
+            raise AssertionError(f"{codec} grid decode: K3 (+K4) launches {k3_launches}")
         if (out.width, out.height) != (2 * W, 2 * H):
             raise AssertionError(f"{codec} grid decoded {out.width}x{out.height}")
         meta = parse_container(data).meta
@@ -1181,7 +1333,7 @@ def check_grid(api, rdsearch_device, cuda_kernels, wavefront, frames, dev, smi):
         print(f"[grid] {codec} 2x2 x {W}x{H} ({2 * W}x{2 * H}): encode {enc_s:.3f} s "
               f"({4 * W * H / 1e6 / enc_s:.4f} MP/s), RD runs {rd}, K2 launches {launches[0]}, K1 launches "
               f"{launches[1]}, {len(data)} bytes; "
-              f"decode {dec_s:.3f} s (K3 launches {k3_launches}) equals the cells decoded one by one; cell Y-PSNR min {worst:.4f} dB; "
+              f"decode {dec_s:.3f} s (K3 (+K4) launches {k3_launches}) equals the cells decoded one by one; cell Y-PSNR min {worst:.4f} dB; "
               f"on {smi}", flush=True)
 
 
@@ -1355,7 +1507,7 @@ def check_batched_launches(wavefront, recon, tables, imgs, dev, smi):
         wavefront.decode_wavefront_reference(levels, modes, txs, plain_out, cfg)
         if not torch.equal(out, plain_out):
             raise AssertionError(f"batched K3 {name} P={p} differs from its plain version")
-        if not torch.equal(recon._blocks_to_plane(out, rb, cb, 16), rec):
+        if not torch.equal(wavefront.blocks_to_plane(out), rec):
             raise AssertionError(f"batched K3 {name} P={p} does not rebuild K2's reconstruction")
         src_blocks, outs, step_cfg, _ = recon._encode_setup(src, dc, ac, 16, 8, False, SPEED, (None, None))
         rows = {}
@@ -1392,8 +1544,9 @@ def check_batched_launches(wavefront, recon, tables, imgs, dev, smi):
 def check_batched_route(api, frame, shard, cuda_kernels, wavefront, files, on_card, dev, smi, launch_times):
     """Phase 18a: phase 4's batch with a one-device codec mesh over the
     card as the default, so uniform batches take the sharded route: one
-    K2 launch per plane group for the whole batch, and its decode one K3
-    and one K4 launch per plane group. Bytes and planes equal phases 4 and 6; walls
+    K2 launch per plane group for the whole batch, and its decode one
+    fused launch (K3 with K4 behind it) per plane group. Bytes and planes
+    equal phases 4 and 6; walls
     of both routes, best and spread of 5 runs in turns; the batched
     route's device busy share, with ``launch_times``' per-launch times
     (check_batched_launches) for wavefront launches whose records the
@@ -1425,15 +1578,19 @@ def check_batched_route(api, frame, shard, cuda_kernels, wavefront, files, on_ca
         if batched != files:
             raise AssertionError("batched encode: bytes differ from phase 4's per-frame files")
         decode()
-        wavefront.decode_wavefront.launches = cuda_kernels.transform_2d.launches = filters.loop_filter.launches = 0
+        counters = (wavefront.decode_filtered, wavefront.decode_wavefront, filters.loop_filter,
+                    cuda_kernels.transform_2d)
+        for counter in counters:
+            counter.launches = 0
+        wavefront.decode_filtered.filter_stages = 0
         decoded = decode()
         torch.cuda.synchronize()
-        dec_launches = (wavefront.decode_wavefront.launches, cuda_kernels.transform_2d.launches)
-        k4_launches = filters.loop_filter.launches
-        if dec_launches != (groups_per_frame(), 0):
-            raise AssertionError(f"batched decode: K3, K1 launches {dec_launches}, expected {(groups_per_frame(), 0)}")
-        if k4_launches != groups_per_frame():
-            raise AssertionError(f"batched decode: K4 launches {k4_launches}, expected {groups_per_frame()}")
+        # one fused launch per plane group for the 8 streams; no standalone K3, K4 or K1
+        dec_launches = tuple(counter.launches for counter in counters)
+        k4_launches = wavefront.decode_filtered.filter_stages
+        if dec_launches != (groups_per_frame(), 0, 0, 0) or k4_launches != groups_per_frame():
+            raise AssertionError(f"batched decode: fused, K3, K4, K1 launches {dec_launches} and {k4_launches} "
+                                 f"filter stages, expected {(groups_per_frame(), 0, 0, 0)} and {groups_per_frame()}")
         for i, (a, b) in enumerate(zip(decoded, on_card)):
             same_planes(a, b, f"batched decode of file {i} vs phase 6")
         walls = {(op, route): [] for op in ("encode", "decode") for route in routes}
@@ -1470,8 +1627,9 @@ def check_batched_route(api, frame, shard, cuda_kernels, wavefront, files, on_ca
               f"kernel records, the wavefront launches' time from phase 18a's per-launch device times when it "
               f"kept fewer); on {smi}", flush=True)
     print(f"[batch] batched route: K2 launches {launches[0]} for {BATCH} frames (per-frame route "
-          f"{BATCH * groups_per_frame()}), bytes equal to phase 4's; K3 launches {dec_launches[0]}, K4 launches "
-          f"{k4_launches}, planes equal to phase 6's; K1 launches 0; the default mesh is None again", flush=True)
+          f"{BATCH * groups_per_frame()}), bytes equal to phase 4's; fused launches {dec_launches[0]} with "
+          f"{k4_launches} filter stages, standalone K3 {dec_launches[1]} and K4 {dec_launches[2]}, planes equal to "
+          f"phase 6's; K1 launches {dec_launches[3]}; the default mesh is None again", flush=True)
     return launches[0], dec_launches[0], k4_launches
 
 
@@ -1505,17 +1663,21 @@ def host_sharded_gop(api, hosts, frames, dev, codec: str):
     return local_s, sharded_s, len(blob)
 
 
-def check_multi_device(api, frame, files, on_card, dev, smi, cuda_kernels, wavefront, recon, tables):
-    """Phase 18: the multi-device codec on the card. Returns the batched
-    launch counts and the kernels line's batched numbers."""
+def check_multi_device(api, frame, files, on_card, dev, smi, cuda_kernels, wavefront, recon, tables, fused):
+    """Phase 18: the multi-device codec on the card. ``fused``: phase 3e's
+    numbers (the fused launch at the batched plane groups). Returns the
+    batched launch counts and the kernels line's batched numbers."""
     from libavif_tpu_torch import entry
     from libavif_tpu_torch.parallel import hosts, shard
     from libavif_tpu_torch.utils import trace
 
     # (a) the batched launches alone, then the main path through the one-device mesh
     numbers = check_batched_launches(wavefront, recon, tables, gradient_frames(), dev, smi)
+    # the route's decode runs the fused launch: its per-launch times stand in for dropped records
+    route_times = {name: {"encode_wavefront_kernel": rows["encode_wavefront_kernel"],
+                          "decode_wavefront_kernel": fused[f"{name} batched"]} for name, rows in numbers.items()}
     enc_launches, dec_launches, k4_launches = check_batched_route(api, frame, shard, cuda_kernels, wavefront,
-                                                                  files, on_card, dev, smi, numbers)
+                                                                  files, on_card, dev, smi, route_times)
 
     # (b) the dry run on a one-device mesh over the card
     t0 = time.perf_counter()
@@ -1659,6 +1821,9 @@ def main() -> int:
     # 3d. K4 against its plain version
     k4 = check_loop_filter(filters, frame, recon, dev, smi)
 
+    # 3e. the fused launch, K3 with K4 behind it, against the plain versions composed
+    fused = check_fused(wavefront, recon, frame, tables, dev, smi)
+
     # 4. own-format path
     imgs = gradient_frames()
     t0 = time.perf_counter()
@@ -1715,18 +1880,22 @@ def main() -> int:
     psnr = 10 * np.log10(255.0**2 / max(np.mean(err * err), 1e-12))
     if not psnr > 30:
         raise AssertionError(f"Y-PSNR {psnr:.2f} dB is too low for q{QUALITY}")
-    wavefront.decode_wavefront.launches = cuda_kernels.transform_2d.launches = filters.loop_filter.launches = 0
+    counters = (wavefront.decode_filtered, wavefront.decode_wavefront, filters.loop_filter, cuda_kernels.transform_2d)
+    for counter in counters:
+        counter.launches = 0
+    wavefront.decode_filtered.filter_stages = 0
     t0 = time.perf_counter()
     on_card = [decode(data, device=dev) for data in files]
     torch.cuda.synchronize()
     dec_all_s = time.perf_counter() - t0
-    dec_launches = (wavefront.decode_wavefront.launches, cuda_kernels.transform_2d.launches)
-    k4_launches = filters.loop_filter.launches
-    # per frame: one K3 and one K4 launch per plane group, luma and the chroma pair; K1 no more
-    if dec_launches != (BATCH * groups_per_frame(), 0):
-        raise AssertionError(f"K3, K1 launches on decode {dec_launches}, expected {(BATCH * groups_per_frame(), 0)}")
-    if k4_launches != BATCH * groups_per_frame():
-        raise AssertionError(f"K4 launches on decode {k4_launches}, expected {BATCH * groups_per_frame()}")
+    # per frame: one fused launch per plane group, luma and the chroma pair, with K4's filter stage (CDEF
+    # at q75) behind K3's wavefront; no standalone K3 or K4 launch, and no K1
+    dec_launches = tuple(counter.launches for counter in counters)
+    k4_launches = wavefront.decode_filtered.filter_stages
+    want = (BATCH * groups_per_frame(), 0, 0, 0)
+    if dec_launches != want or k4_launches != BATCH * groups_per_frame():
+        raise AssertionError(f"fused, K3, K4, K1 launches on decode {dec_launches} and {k4_launches} filter "
+                             f"stages, expected {want} and {BATCH * groups_per_frame()}")
     t0 = time.perf_counter()
     for i, (data, img) in enumerate(zip(files, on_card)):
         same_planes(img, decode(data, device="cpu"), f"file {i}: card decode vs CPU decode")
@@ -1743,16 +1912,16 @@ def main() -> int:
     mp = BATCH * W * H / 1e6
     print(f"[decode] card decode {gpu_dec_s:.3f} s equals CPU decode; Y-PSNR {psnr:.4f} dB; "
           f"the {BATCH} files on the card {dec_all_s:.3f} s ({mp / dec_all_s:.4f} MP/s; reruns "
-          f"{reruns[0]:.3f} / {reruns[1]:.3f} s), K3 launches {dec_launches[0]}, K4 launches {k4_launches}, "
-          f"K1 launches {dec_launches[1]}; every file's planes equal the CPU port's ({cpu_dec_s:.3f} s on the "
+          f"{reruns[0]:.3f} / {reruns[1]:.3f} s), fused launches (K3 with K4 behind it) {dec_launches[0]} with "
+          f"{k4_launches} filter stages, standalone K3 {dec_launches[1]}, standalone K4 {dec_launches[2]}, K1 "
+          f"{dec_launches[3]}; every file's planes equal the CPU port's ({cpu_dec_s:.3f} s on the "
           f"CPU), Y-PSNR > 30 dB; on {smi}", flush=True)
     wall, device = profile_device(lambda: [decode(data, device=dev) for data in files])
     busy = sum(device.values()) / 1e3
     k3_main = kernel_ms(device, "decode_wavefront_kernel", BATCH * groups_per_frame())
-    k4_main = kernel_ms(device, "loop_filter_kernel", BATCH * groups_per_frame())
     print(f"[decode] under torch.profiler: wall {wall:.3f} s, device busy {busy:.4f} s "
-          f"({100 * busy / wall:.2f}%), K3 device {per_launch(device, k3_main, 'decode_wavefront_kernel')} per launch, "
-          f"K4 device {per_launch(device, k4_main, 'loop_filter_kernel')} per launch; top device entries: "
+          f"({100 * busy / wall:.2f}%), fused launch device {per_launch(device, k3_main, 'decode_wavefront_kernel')} "
+          f"per launch (luma and chroma pairs); top device entries: "
           + ", ".join(f"{k[:60]} {v:.3f} ms" for k, v in sorted(device.items(), key=lambda kv: -kv[1])[:6]),
           flush=True)
     # the device stage with and without the filters, 3 runs each in turns
@@ -1762,23 +1931,24 @@ def main() -> int:
             splits[with_filters].append(decode_split(frame, recon, files, dev, with_filters))
     entropy = [e for e, _ in splits[True] + splits[False]]
     print(f"[decode] split of the same files: host entropy decoding alone {spread(entropy)}; device stage "
-          f"alone (upload, {BATCH * groups_per_frame()} K3 launches, {BATCH * groups_per_frame()} K4 launches, "
-          f"fetch) {spread([d for _, d in splits[True]])}; the same without the filters "
+          f"alone (upload, {BATCH * groups_per_frame()} fused launches, fetch) "
+          f"{spread([d for _, d in splits[True]])}; the same without the filters "
           f"{spread([d for _, d in splits[False]])}; in turns; on {smi}", flush=True)
     # two files at q50: deblocking and CDEF both on
     q50_files = encode_batch(imgs[:2], quality=50, speed=SPEED, codec="native", device=dev)
-    filters.loop_filter.launches = 0
+    filters.loop_filter.launches = wavefront.decode_filtered.filter_stages = 0
     q50_card = [decode(data, device=dev) for data in q50_files]
     torch.cuda.synchronize()
-    if filters.loop_filter.launches != 2 * groups_per_frame():
-        raise AssertionError(f"q50 decode: K4 launches {filters.loop_filter.launches}, "
-                             f"expected {2 * groups_per_frame()}")
+    if (wavefront.decode_filtered.filter_stages, filters.loop_filter.launches) != (2 * groups_per_frame(), 0):
+        raise AssertionError(f"q50 decode: filter stages {wavefront.decode_filtered.filter_stages}, standalone K4 "
+                             f"launches {filters.loop_filter.launches}, expected {2 * groups_per_frame()} and 0")
     for i, (data, img) in enumerate(zip(q50_files, q50_card)):
         coded = frame._parse_own_format(primary_obus(data))
         if not (coded.deblock and coded.cdef):
             raise AssertionError(f"q50 file {i}: deblock {coded.deblock}, cdef {coded.cdef}")
         same_planes(img, decode(data, device="cpu"), f"q50 file {i}: card decode vs CPU decode")
-    print(f"[decode] 2 files at q50 (deblocking and CDEF on): K4 launches {2 * groups_per_frame()}, planes "
+    print(f"[decode] 2 files at q50 (deblocking and CDEF on): {2 * groups_per_frame()} fused launches with the "
+          f"filter stage, no standalone K4, planes "
           f"equal the CPU port's, Y-PSNR {y_psnr(q50_card[0], imgs[0]):.4f} / {y_psnr(q50_card[1], imgs[1]):.4f} "
           f"dB", flush=True)
 
@@ -1881,7 +2051,7 @@ def main() -> int:
 
     # 18. the multi-device codec: the batched route, the dry run, host-sharded GOPs, the trace
     batch_k2, batch_k3, batch_k4, batched = check_multi_device(api, frame, files, on_card, dev, smi, cuda_kernels,
-                                                     wavefront, recon, tables)
+                                                               wavefront, recon, tables, fused)
 
     def batched_numbers(kernel_name: str, launches: int) -> dict:
         return {"launches": launches, **{name: rows[kernel_name] for name, rows in batched.items()}}
@@ -1893,7 +2063,7 @@ def main() -> int:
             "route": "cuda",
             "source": "libavif_tpu_torch/csrc/transform2d.cu",
             "replaces": "libavif_tpu/ops/pallas_kernels.py:84",
-            "launches": dec_launches[1],  # phase 6: the 8 files decoded on the card (K1 runs inside K3)
+            "launches": dec_launches[3],  # phase 6: the 8 files decoded on the card (K1 runs inside K3)
             "max_abs_err": max_err,
             "ms": k1_dev,
             "call_ms": k_ms,
@@ -1925,28 +2095,47 @@ def main() -> int:
             "route": "cuda",
             "source": "libavif_tpu_torch/csrc/decode_wavefront.cu",
             "replaces": "libavif_tpu/codec/recon.py:226",
-            "launches": dec_launches[0],  # phase 6: the 8 files decoded on the card
-            "max_abs_err": k3["luma"]["max_abs_err"],  # over phase 3c's cases
-            "ms": k3["luma"]["ms"],  # one launch: the 768x512 luma plane
-            "call_ms": k3["luma"]["call_ms"],
-            "plain_ms": k3["luma"]["plain_ms"],
-            "bound_ms": k3["luma"]["bound_ms"],
-            "bound_by": k3["luma"]["bound_by"],
-            "chain_bound_ms": k3["luma"]["chain_bound_ms"],  # 79 x the one-block-wide plane's block
+            # phase 6: the 8 files decoded on the card, one fused launch (K3 with K4's stage behind
+            # it, wavefront.decode_filtered) per plane group; no launch of K3 alone
+            "launches": dec_launches[0] + dec_launches[1],
+            "max_abs_err": max(fused["luma"]["max_abs_err"], k3["luma"]["max_abs_err"]),  # phases 3c, 3e
+            # one fused launch: the 768x512 luma plane at q75 (residuals, wavefront, CDEF), phase 3e
+            "ms": fused["luma"]["ms"],
+            "call_ms": fused["luma"]["call_ms"],
+            "plain_ms": fused["luma"]["plain_ms"],
+            "bound_ms": fused["luma"]["bound_ms"],
+            "bound_by": fused["luma"]["bound_by"],
             # no PyTorch call: CUDA has no int32 matmul, the inverse rounds between its passes,
-            # and the prediction depends on blocks decoded in the same call
+            # the prediction depends on blocks decoded in the same call, and the filters are a
+            # conditional smooth and a per-block argmin of directions
             "library_ms": None,
-            "chroma": k3["chroma"],
-            "batched": batched_numbers("decode_wavefront_kernel", batch_k3),
+            "chroma": fused["chroma"],
+            "q50": fused["luma q50"],  # deblocking and CDEF
+            # phase 18: the 8-stream decode as one fused launch per plane group; the fused
+            # launch timed at those groups (luma P = 8, chroma P = 16) in phase 3e
+            "batched": {"launches": batch_k3, "luma": fused["luma batched"], "chroma": fused["chroma batched"]},
+            # the launch with the filter stage off, blocks out (wavefront.decode_wavefront):
+            # phase 3c at the main path's groups, phase 18 at the batched ones
+            "alone": {"luma": k3["luma"], "chroma": k3["chroma"],
+                      "batched": batched_numbers("decode_wavefront_kernel", 0)},
+            # this design's link latency, not a bound: us a block in a plane one block high and one
+            # one block wide (phase 3c)
+            "link_us": k3["luma"]["link_us"],
         },
         {
             "name": "loop_filter",
             "route": "cuda",
-            "source": "libavif_tpu_torch/csrc/loop_filter.cu",
+            "source": "libavif_tpu_torch/csrc/loop_filter.cuh",
             "replaces": "libavif_tpu/ops/filters.py:95",
-            "launches": k4_launches,  # phase 6: the 8 files decoded on the card
-            "max_abs_err": k4["luma"]["max_abs_err"],  # over phase 3d's cases
-            "ms": k4["luma"]["ms"],  # one launch: the 768x512 luma plane at q75 (CDEF)
+            # on the main path K4's tiles run inside decode_wavefront's fused launch, behind the
+            # wavefront: phase 6's launches that ran the filter stage (CDEF at q75)
+            "runs_inside": "decode_wavefront",
+            "launches": k4_launches,
+            "standalone_launches": dec_launches[2],  # phase 6: the standalone kernel, loop_filter.cu
+            "max_abs_err": k4["luma"]["max_abs_err"],  # over phase 3d's cases (phase 3e: the fused stage)
+            # the standalone kernel (ops.filters.loop_filter, csrc/loop_filter.cu), phase 3d: the
+            # 768x512 luma plane at q75 (CDEF); the fused launch's time is decode_wavefront's
+            "ms": k4["luma"]["ms"],
             "call_ms": k4["luma"]["call_ms"],
             "plain_ms": k4["luma"]["plain_ms"],
             "bound_ms": k4["luma"]["bound_ms"],
@@ -1954,7 +2143,8 @@ def main() -> int:
             "library_ms": None,  # no single PyTorch call computes either filter
             "chroma": k4["chroma"],
             "q50": k4["luma q50"],  # deblocking and CDEF
-            # phase 18: the 8-stream decode as one launch per plane group (luma P = 8, chroma P = 16)
+            # phase 18: the 8-stream decode's filter stages (one a plane group, inside the fused
+            # launches); the standalone kernel timed at those groups (luma P = 8, chroma P = 16)
             "batched": {"launches": batch_k4, "luma": k4["luma batched"], "chroma": k4["chroma batched"]},
         },
     ]}), flush=True)

@@ -21,8 +21,9 @@ kernel launch per plane group on a CUDA tensor: K2 on encode
 (``csrc/encode_wavefront.cu``) and K3 on decode
 (``csrc/decode_wavefront.cu``, which also synthesises each block's
 residual with its signalled inverse transform), both through
-``ops/wavefront.py``; the decoder's in-loop filters are one K4 launch per
-plane group (``csrc/loop_filter.cu``, through ``ops/filters.loop_filter``).
+``ops/wavefront.py``. On decode, the in-loop filters (K4's tile,
+``csrc/loop_filter.cuh``) run inside K3's launch, behind its wavefront
+(``wavefront.decode_filtered``), so a plane group decodes in one launch.
 A CPU tensor takes each kernel's plain version,
 which reads each block's neighbours back from the reconstruction already
 written; ``encode_plane_with`` runs the plain per-diagonal encode step on
@@ -41,7 +42,6 @@ import numpy as np
 import torch
 
 from ..ops import wavefront
-from ..ops.filters import loop_filter
 from ..ops.intra import (
     D45_PRED,
     D135_PRED,
@@ -104,11 +104,6 @@ def pad_to_blocks(plane: np.ndarray, n: int) -> np.ndarray:
     return np.pad(plane, ((0, hp - h), (0, wp - w)), mode="edge")
 
 
-def _blocks_to_plane(blocks: torch.Tensor, rb: int, cb: int, n: int) -> torch.Tensor:
-    """(P, Rb, Cb, n, n) -> (P, Rb*n, Cb*n)."""
-    return blocks.permute(0, 1, 3, 2, 4).reshape(blocks.shape[0], rb * n, cb * n)
-
-
 def _as_planes(x: torch.Tensor, dims: int):
     """Add a leading plane axis when ``x`` has only ``dims`` dims."""
     return (x[None], True) if x.dim() == dims else (x, False)
@@ -137,7 +132,7 @@ def decode_plane(levels, modes, dc_step: int, ac_step: int, tx_types=None, *,
                                  ac_step=int(ac_step))
     rec_blocks = torch.empty((p, rb, cb, n, n), dtype=_I32, device=modes.device)
     wavefront.decode_wavefront(levels, modes, tx_types, rec_blocks, cfg)
-    out = _blocks_to_plane(rec_blocks, rb, cb, n)
+    out = wavefront.blocks_to_plane(rec_blocks)
     return out[0] if squeeze else out
 
 
@@ -209,8 +204,7 @@ def _encode_setup(src, dc_step, ac_step, n, depth, lossless, speed, search):
 def _encode_results(outs, squeeze: bool):
     """``outs`` as ``encode_plane`` returns them."""
     modes, tx_types, levels, rec_blocks = outs
-    _, rb, cb, n, _ = rec_blocks.shape
-    recon = _blocks_to_plane(rec_blocks, rb, cb, n)
+    recon = wavefront.blocks_to_plane(rec_blocks)
     if squeeze:
         return modes[0], levels[0], recon[0], tx_types[0]
     return modes, levels, recon, tx_types
@@ -280,9 +274,9 @@ def decode_frame_device(packed: torch.Tensor, dc_step: int, ac_step: int, debloc
     the device, one row per frame. Returns the ([F,] out_L) concat of
     reconstructed padded planes there, uint8 for 8-bit and int16 for
     deeper planes. Same-geometry planes of every frame decode as one
-    batch (one K3 launch on a CUDA tensor per plane group); ``deblock``/
-    ``cdef`` apply the in-loop filters, once over that batch (one K4
-    launch on a CUDA tensor per plane group, each plane on its own)."""
+    batch, ``deblock``/``cdef`` applying the in-loop filters to each plane
+    on its own: one ``wavefront.decode_filtered`` call per plane group,
+    one launch of K3 with K4 behind it on a CUDA tensor."""
     batch, squeeze = _as_planes(packed, 1)
     f = batch.shape[0]
     out_dtype = torch.uint8 if depth == 8 else torch.int16
@@ -294,11 +288,10 @@ def decode_frame_device(packed: torch.Tensor, dc_step: int, ac_step: int, debloc
         modes = _stacked(batch, offs, idxs, 0, nb, (rb, cb)).clamp(0, N_MODES - 1)
         txs = _stacked(batch, offs, idxs, nb, nb, (rb, cb)).clamp(0, N_TX - 1)
         levels = _stacked(batch, offs, idxs, 2 * nb, nb * n * n, (rb, cb, n, n))
-        planes = decode_plane(
-            levels, modes, dc_step, ac_step, txs, n=n, depth=depth, lossless=lossless
-        )
-        if deblock or cdef:
-            planes = loop_filter(planes, deblock_thresh, cdef_thresh, n=n, deblock=deblock, cdef=cdef)
+        cfg = wavefront.DecodeConfig(n=n, depth=depth, lossless=lossless, dc_step=int(dc_step),
+                                     ac_step=int(ac_step))
+        planes = wavefront.decode_filtered(levels.contiguous(), modes.contiguous(), txs.contiguous(), cfg,
+                                           int(deblock_thresh), int(cdef_thresh), deblock=deblock, cdef=cdef)
         planes = planes.reshape(f, len(idxs), -1).to(out_dtype)
         for k, i in enumerate(idxs):
             results[i] = planes[:, k]

@@ -11,12 +11,13 @@
 // products and sums are taken in uint32, which wraps exactly as int32
 // does, and round2(v, b) = (int32)((uint32)v + 2^(b-1)) >> b.
 //
-// One thread computes one output element (i, j); the operands are in
-// shared memory, row-major, with rk held transposed (rkT[k*N + j] =
-// rk[j][k]) so that the row pass reads along j.
+// One thread computes one output element (i, j), or four along j (the
+// *4 forms); the operands are in shared memory, row-major, with rk held
+// transposed (rkT[k*N + j] = rk[j][k]) so that the row pass reads along j.
 
 #pragma once
 
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace avt {
@@ -44,6 +45,44 @@ __device__ __forceinline__ int32_t row_pass(const int32_t* t, const int32_t* rkT
 #pragma unroll
   for (int k = 0; k < N; ++k) acc += (uint32_t)t[i * N + k] * (uint32_t)rkT[k * N + j];
   return round2_wrap(acc, shift);
+}
+
+// Elements (i, j .. j + 3) of round2(ck · x, shift), j a multiple of 4
+// and x 16-byte aligned: four outputs share each load of ck.
+template <int N>
+__device__ __forceinline__ int4 column_pass4(const int32_t* ck, const int32_t* x, int i, int j,
+                                             int shift) {
+  uint32_t a0 = 0, a1 = 0, a2 = 0, a3 = 0;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const uint32_t c = (uint32_t)ck[i * N + k];
+    const int4 xv = *reinterpret_cast<const int4*>(x + k * N + j);
+    a0 += c * (uint32_t)xv.x;
+    a1 += c * (uint32_t)xv.y;
+    a2 += c * (uint32_t)xv.z;
+    a3 += c * (uint32_t)xv.w;
+  }
+  return make_int4(round2_wrap(a0, shift), round2_wrap(a1, shift), round2_wrap(a2, shift),
+                   round2_wrap(a3, shift));
+}
+
+// Elements (i, j .. j + 3) of round2(t · rkᵀ, shift), rkT = rk transposed,
+// j a multiple of 4 and rkT 16-byte aligned.
+template <int N>
+__device__ __forceinline__ int4 row_pass4(const int32_t* t, const int32_t* rkT, int i, int j,
+                                          int shift) {
+  uint32_t a0 = 0, a1 = 0, a2 = 0, a3 = 0;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const uint32_t v = (uint32_t)t[i * N + k];
+    const int4 r = *reinterpret_cast<const int4*>(rkT + k * N + j);
+    a0 += v * (uint32_t)r.x;
+    a1 += v * (uint32_t)r.y;
+    a2 += v * (uint32_t)r.z;
+    a3 += v * (uint32_t)r.w;
+  }
+  return make_int4(round2_wrap(a0, shift), round2_wrap(a1, shift), round2_wrap(a2, shift),
+                   round2_wrap(a3, shift));
 }
 
 }  // namespace avt

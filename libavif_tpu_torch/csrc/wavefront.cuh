@@ -1,6 +1,8 @@
 // The persistent-wavefront scaffold of the port's wavefront kernels:
-// per-lane progress counters, the neighbour fetch from the reconstruction
-// written so far, and the intra predictor (ops/intra.py).
+// per-lane progress counters in device memory, their CTA-scope
+// counterparts in shared memory (the decode wavefront's lanes inside one
+// CTA), the neighbour fetch from the reconstruction written so far, and
+// the intra predictor (ops/intra.py).
 //
 // A wavefront kernel walks a (P, Rb, Cb) grid of n x n blocks. A lane is
 // one block row of one plane, flattened as plane * Rb + r; a CTA walks
@@ -45,20 +47,52 @@ __device__ __forceinline__ unsigned long long global_ns() {
   return t;
 }
 
-// Thread 0 of a CTA: wait until progress[lane] >= count. Past the budget,
-// write `who` to *error and trap, so that the launch fails instead of
-// hanging.
+// CTA-scope counterparts, for counters in shared memory that the warps of
+// one CTA hand to each other.
+__device__ __forceinline__ int load_acquire_cta(const int* p) {
+  int v;
+  asm volatile("ld.acquire.cta.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_release_cta(int* p, int v) {
+  asm volatile("st.release.cta.b32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// The `count` threads of the CTA that call it with barrier `id` (1-15)
+// meet; their memory accesses before it are performed for each other.
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void fail(int* error, int who) {
+  atomicExch(error, who);
+  __threadfence();
+  __trap();
+}
+
+// Thread 0 of a CTA: wait until progress[lane] >= count, polling every
+// `sleep_ns` (0: as fast as it can). Past the budget, write `who` to
+// *error and trap, so that the launch fails instead of hanging.
 __device__ __forceinline__ void wait_progress(const int* progress, int lane, int count, int* error,
-                                              int who) {
+                                              int who, unsigned sleep_ns = 0) {
   if (load_acquire(progress + lane) >= count) return;
   const unsigned long long t0 = global_ns();
   for (unsigned polls = 1;; ++polls) {
+    if (sleep_ns) __nanosleep(sleep_ns);
     if (load_acquire(progress + lane) >= count) return;
-    if ((polls & 1023u) == 0 && global_ns() - t0 > kWaitBudgetNs) {
-      atomicExch(error, who);
-      __threadfence();
-      __trap();
-    }
+    if ((polls & 1023u) == 0 && global_ns() - t0 > kWaitBudgetNs) fail(error, who);
+  }
+}
+
+// One thread: wait until the shared-memory counter *counter >= count,
+// which another warp of the CTA releases; the same budget.
+__device__ __forceinline__ void wait_shared(const int* counter, int count, int* error, int who) {
+  if (load_acquire_cta(counter) >= count) return;
+  const unsigned long long t0 = global_ns();
+  for (unsigned polls = 1;; ++polls) {
+    if (load_acquire_cta(counter) >= count) return;
+    if ((polls & 1023u) == 0 && global_ns() - t0 > kWaitBudgetNs) fail(error, who);
   }
 }
 

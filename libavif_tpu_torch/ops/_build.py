@@ -115,9 +115,9 @@ def load() -> ctypes.CDLL:
         lib.avt_encode_wavefront_capacity.restype = ctypes.c_int
         lib.avt_encode_wavefront_capacity.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.avt_decode_wavefront.restype = ctypes.c_int
-        lib.avt_decode_wavefront.argtypes = [ctypes.c_void_p] * 8
+        lib.avt_decode_wavefront.argtypes = [ctypes.c_void_p] * 10
         lib.avt_decode_wavefront_capacity.restype = ctypes.c_int
-        lib.avt_decode_wavefront_capacity.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.avt_decode_wavefront_capacity.argtypes = [ctypes.c_int] * 4
         lib.avt_loop_filter.restype = ctypes.c_int
         lib.avt_loop_filter.argtypes = [ctypes.c_void_p] * 4
         _lib = lib

@@ -49,6 +49,7 @@ import torch
 from .. import tables
 from . import _build
 from .cuda_kernels import _bases, transform_2d_reference
+from .filters import loop_filter_reference
 from .intra import N_MODES, predict_all_modes
 from .transforms import (
     ADST_ADST,
@@ -507,26 +508,26 @@ def decode_wavefront_reference(levels, modes, tx_types, recon_out, cfg: DecodeCo
         recon_out[:, rows, cols] = block.reshape(p, rows.numel(), n, n)
 
 
-def _check_decode(levels, modes, tx_types, recon_out, cfg: DecodeConfig):
+def _check_decode(levels, modes, tx_types, recon_out, cfg: DecodeConfig, name: str = "decode_wavefront"):
     if cfg.n not in TX_SIZES:
-        raise ValueError(f"decode_wavefront: block size {cfg.n} not in {TX_SIZES}")
+        raise ValueError(f"{name}: block size {cfg.n} not in {TX_SIZES}")
     if modes.dim() != 3:
-        raise ValueError(f"decode_wavefront: modes must be (P, Rb, Cb), got {tuple(modes.shape)}")
+        raise ValueError(f"{name}: modes must be (P, Rb, Cb), got {tuple(modes.shape)}")
     blocks = tuple(modes.shape)
     full = blocks + (cfg.n, cfg.n)
-    for name, t, want in (("levels", levels, full), ("tx_types", tx_types, blocks),
+    for what, t, want in (("levels", levels, full), ("tx_types", tx_types, blocks),
                           ("recon_out", recon_out, full)):
         if t is not None and tuple(t.shape) != want:
-            raise ValueError(f"decode_wavefront: {name} must be {want}, got {tuple(t.shape)}")
+            raise ValueError(f"{name}: {what} must be {want}, got {tuple(t.shape)}")
     tensors = [t for t in (levels, modes, tx_types, recon_out) if t is not None]
     if any(t.dtype != _I32 for t in tensors):
-        raise TypeError("decode_wavefront takes int32 tensors")
+        raise TypeError(f"{name} takes int32 tensors")
     if any(t.device != modes.device for t in tensors):
-        raise ValueError("decode_wavefront: every tensor must be on one device")
+        raise ValueError(f"{name}: every tensor must be on one device")
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("decode_wavefront takes contiguous tensors")
+        raise ValueError(f"{name} takes contiguous tensors")
     if modes.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"decode_wavefront runs on cuda or cpu, not {modes.device}")
+        raise ValueError(f"{name} runs on cuda or cpu, not {modes.device}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -546,33 +547,102 @@ def _decode_tables_on(n: int, lossless: bool, device: str) -> torch.Tensor:
     return _table_with_predictor(parts, n, device)
 
 
+# Lanes (block rows) of one plane that one CTA of the decode kernel walks,
+# two warps each (at most 8, csrc/decode_wavefront.cu's kMaxLanes). A
+# plane crosses SMs once every LANES_PER_CTA lanes; 4 keeps two CTAs on an
+# SM for the residuals and the filter tiles (PERF.md §6).
+LANES_PER_CTA = 4
+# K4's tile and halo (csrc/loop_filter.cuh: kTile, kHalo).
+FILTER_TILE = 32
+FILTER_HALO = 5
+LANE_GROUP, FILTER_TILE_ITEM = 0, 1
+
+
+def decode_work_list(p: int, rb: int, cb: int, n: int, lanes_per_cta: int, filters: bool) -> np.ndarray:
+    """The decode kernel's work list, (K, 4) int32 rows (kind, plane, a,
+    b): kind ``LANE_GROUP`` with a = the group (lanes ``a * lanes_per_cta``
+    on of the plane), and, when ``filters``, kind ``FILTER_TILE_ITEM``
+    with (a, b) = the 32x32 tile (ty, tx) of the (rb * n, cb * n) plane.
+
+    Group g waits for the last lane of group g - 1 of its plane; a tile
+    waits until the last lane of the group that holds its last halo row
+    (``min(h, 32 * ty + 37) - 1``) has written the block column that holds
+    its last halo column (``min(w, 32 * tx + 37) - 1``). Items are ordered
+    by the anti-diagonal at which they can start (a group at its first
+    lane's first block, a tile at that block (lane, column)), groups before
+    tiles on ties, so every item comes after all it waits on."""
+    groups = -(-rb // lanes_per_cta)
+    keyed = []
+    for plane in range(p):
+        keyed += [((g * lanes_per_cta, LANE_GROUP, plane, g, 0), (LANE_GROUP, plane, g, 0))
+                  for g in range(groups)]
+        if not filters:
+            continue
+        h, w = rb * n, cb * n
+        for ty in range(-(-h // FILTER_TILE)):
+            last_row = min(h, (ty + 1) * FILTER_TILE + FILTER_HALO) - 1
+            lane = min(rb, (last_row // n // lanes_per_cta + 1) * lanes_per_cta) - 1
+            for tx in range(-(-w // FILTER_TILE)):
+                col = (min(w, (tx + 1) * FILTER_TILE + FILTER_HALO) - 1) // n
+                keyed.append(((lane + col, FILTER_TILE_ITEM, plane, ty, tx), (FILTER_TILE_ITEM, plane, ty, tx)))
+    keyed.sort(key=lambda kv: kv[0])
+    return np.array([item for _, item in keyed], np.int32).reshape(-1, 4)
+
+
+@functools.lru_cache(maxsize=64)
+def _work_on(p: int, rb: int, cb: int, n: int, lanes_per_cta: int, filters: bool, device: str) -> torch.Tensor:
+    return torch.from_numpy(decode_work_list(p, rb, cb, n, lanes_per_cta, filters)).to(device)
+
+
 class _DecodeParams(ctypes.Structure):
     """Mirror of ``DecodeParams`` in ``csrc/decode_wavefront.cu``."""
 
-    _fields_ = [
-        ("p", ctypes.c_int), ("rb", ctypes.c_int), ("cb", ctypes.c_int),
-        ("n", ctypes.c_int), ("depth", ctypes.c_int), ("lossless", ctypes.c_int),
-        ("dc_step", ctypes.c_int), ("ac_step", ctypes.c_int), ("cmax", ctypes.c_int),
-    ]
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "p", "rb", "cb", "n", "depth", "lossless", "dc_step", "ac_step", "cmax", "lanes_per_cta",
+        "raster", "filter", "deblock_thresh", "cdef_thresh", "deblock", "cdef", "n_items")]
 
 
-@functools.lru_cache(maxsize=None)
-def _decode_params(cfg: DecodeConfig, p: int, rb: int, cb: int) -> _DecodeParams:
-    """The launch's constant parameters (read, never written, per call)."""
-    return _DecodeParams(p, rb, cb, cfg.n, cfg.depth, int(cfg.lossless), int(cfg.dc_step),
-                         int(cfg.ac_step), cfg.cmax)
-
-
-def decode_resident_ctas(cfg: DecodeConfig, device) -> int:
-    """How many CTAs of K3 for ``cfg`` the card holds at once: the largest
-    grid of a cooperative launch, which ``decode_wavefront`` caps at the
-    group's lane count."""
+def decode_resident_ctas(cfg: DecodeConfig, device, filters: bool = False) -> int:
+    """How many CTAs of the decode kernel for ``cfg`` (``LANES_PER_CTA``
+    warps each, with or without the filter stage's shared memory) the card
+    holds at once: the largest grid of its cooperative launch."""
     device = torch.device(device)
     with _build.on_device(device):
-        got = _build.load().avt_decode_wavefront_capacity(cfg.n, int(cfg.lossless))
+        got = _build.load().avt_decode_wavefront_capacity(cfg.n, int(cfg.lossless), LANES_PER_CTA,
+                                                          int(filters))
     if got <= 0:
-        raise RuntimeError(f"decode_wavefront: occupancy query failed: CUDA error {-got}")
+        raise RuntimeError(f"decode kernel: occupancy query failed: CUDA error {-got}")
     return got
+
+
+def _launch_decode(levels, modes, tx_types, recon, out, cfg: DecodeConfig, filters: tuple | None,
+                   name: str) -> None:
+    """One launch of ``csrc/decode_wavefront.cu`` on the current stream:
+    blocks into ``recon``, (P, Rb, Cb, n, n) when ``out`` is None, else
+    raster (P, Rb*n, Cb*n); with ``filters`` = (deblock_thresh,
+    cdef_thresh, deblock, cdef) the filter stage writes ``out``."""
+    if any(t is not None and t.data_ptr() % 16 for t in (levels, recon, out)):
+        raise ValueError(f"{name}: levels and the output must be 16-byte aligned (the kernel moves "
+                         f"four coefficients at a time)")
+    p, rb, cb = modes.shape
+    dev = modes.device
+    work = _work_on(p, rb, cb, cfg.n, LANES_PER_CTA, filters is not None, str(dev))
+    dt, ct, deblock, cdef = filters or (0, 0, False, False)
+    prm = _DecodeParams(p, rb, cb, cfg.n, cfg.depth, int(cfg.lossless), int(cfg.dc_step), int(cfg.ac_step),
+                        cfg.cmax, LANES_PER_CTA, int(out is not None), int(filters is not None),
+                        int(dt), int(ct), int(deblock), int(cdef), work.shape[0])
+    table = _decode_tables_on(cfg.n, cfg.lossless, str(dev))
+    counters = torch.zeros(p * rb + 3, dtype=_I32, device=dev)
+    lib = _build.load()
+    with _build.on_device(dev):
+        rc = lib.avt_decode_wavefront(
+            ctypes.byref(prm), levels.data_ptr(), modes.data_ptr(),
+            None if tx_types is None else tx_types.data_ptr(), recon.data_ptr(),
+            recon.data_ptr() if out is None else out.data_ptr(), counters.data_ptr(), table.data_ptr(),
+            work.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
 def decode_wavefront(levels, modes, tx_types, recon_out, cfg: DecodeConfig) -> None:
@@ -580,29 +650,75 @@ def decode_wavefront(levels, modes, tx_types, recon_out, cfg: DecodeConfig) -> N
     ``recon_out`` ((P, Rb, Cb, n, n) int32) from ``levels`` ((P, Rb, Cb,
     n, n)), ``modes`` and ``tx_types`` ((P, Rb, Cb); None means all DCT,
     and lossless ignores them), all int32. CUDA tensors take one
-    cooperative launch on the current stream, with a zeroed (P * Rb + 1)
-    int32 buffer of per-lane progress counters and an error word; CPU
-    tensors take the plain version."""
+    cooperative launch on the current stream with the filter stage off
+    (its counters, a zeroed int32 buffer, and its lane-group work list
+    with it); CPU tensors take the plain version."""
     _check_decode(levels, modes, tx_types, recon_out, cfg)
     if modes.device.type == "cpu":
         decode_wavefront_reference(levels, modes, tx_types, recon_out, cfg)
         return
-    p, rb, cb = modes.shape
-    if p * rb * cb == 0:
+    if modes.numel() == 0:
         return
-    dev = modes.device
-    table = _decode_tables_on(cfg.n, cfg.lossless, str(dev))
-    progress = torch.zeros(p * rb + 1, dtype=_I32, device=dev)
-    lib = _build.load()
-    with _build.on_device(dev):
-        rc = lib.avt_decode_wavefront(
-            ctypes.byref(_decode_params(cfg, p, rb, cb)), levels.data_ptr(), modes.data_ptr(),
-            None if tx_types is None else tx_types.data_ptr(), recon_out.data_ptr(),
-            progress.data_ptr(), table.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"decode_wavefront launch failed: CUDA error {rc}")
+    _launch_decode(levels, modes, tx_types, recon_out, None, cfg, None, "decode_wavefront")
     decode_wavefront.launches += 1
 
 
 decode_wavefront.launches = 0
+
+
+def blocks_to_plane(blocks: torch.Tensor) -> torch.Tensor:
+    """(P, Rb, Cb, n, n) -> (P, Rb*n, Cb*n)."""
+    p, rb, cb, n, _ = blocks.shape
+    return blocks.permute(0, 1, 3, 2, 4).reshape(p, rb * n, cb * n)
+
+
+def filters_on(deblock_thresh: int, cdef_thresh: int, deblock: bool, cdef: bool) -> bool:
+    """Whether the in-loop filters change anything: deblocking and CDEF
+    with a threshold of 0 or less leave a plane as it is."""
+    return (deblock and deblock_thresh > 0) or (cdef and cdef_thresh > 0)
+
+
+def decode_filtered_reference(levels, modes, tx_types, cfg: DecodeConfig, deblock_thresh: int = 0,
+                              cdef_thresh: int = 0, *, deblock: bool = False,
+                              cdef: bool = False) -> torch.Tensor:
+    """Plain version of the fused decode: ``decode_wavefront_reference``,
+    the blocks laid out as planes (``blocks_to_plane``), then
+    ``filters.loop_filter_reference``. Returns (P, Rb*n, Cb*n) int32."""
+    rec = torch.empty(levels.shape, dtype=_I32, device=levels.device)
+    decode_wavefront_reference(levels, modes, tx_types, rec, cfg)
+    return loop_filter_reference(blocks_to_plane(rec), deblock_thresh, cdef_thresh, n=cfg.n,
+                                 deblock=deblock, cdef=cdef)
+
+
+def decode_filtered(levels, modes, tx_types, cfg: DecodeConfig, deblock_thresh: int = 0,
+                    cdef_thresh: int = 0, *, deblock: bool = False, cdef: bool = False) -> torch.Tensor:
+    """K3 with K4 behind it: the reconstructed planes of a plane group,
+    (P, Rb*n, Cb*n) int32, from the same inputs as ``decode_wavefront``,
+    with deblocking and CDEF applied as ``filters.loop_filter`` applies
+    them. A CUDA tensor takes one cooperative launch on the current
+    stream: the wavefront writes the raster planes (into scratch when a
+    filter is on), and the filter stage runs each 32x32 tile once the
+    blocks under it and its halo are written. ``launches`` counts those
+    launches and ``filter_stages`` those with the filter stage on. A CPU
+    tensor takes ``decode_filtered_reference``."""
+    _check_decode(levels, modes, tx_types, None, cfg, "decode_filtered")
+    if modes.device.type == "cpu":
+        return decode_filtered_reference(levels, modes, tx_types, cfg, deblock_thresh, cdef_thresh,
+                                         deblock=deblock, cdef=cdef)
+    p, rb, cb = modes.shape
+    out = torch.empty((p, rb * cfg.n, cb * cfg.n), dtype=_I32, device=modes.device)
+    if out.numel() == 0:
+        return out
+    on = filters_on(deblock_thresh, cdef_thresh, deblock, cdef)
+    if on:
+        _launch_decode(levels, modes, tx_types, torch.empty_like(out), out, cfg,
+                       (deblock_thresh, cdef_thresh, deblock, cdef), "decode_filtered")
+    else:
+        _launch_decode(levels, modes, tx_types, out, out, cfg, None, "decode_filtered")
+    decode_filtered.launches += 1
+    decode_filtered.filter_stages += on
+    return out
+
+
+decode_filtered.launches = 0
+decode_filtered.filter_stages = 0

@@ -1,5 +1,5 @@
 """Tests that need an NVIDIA GPU: K1, K2 and K3 (the encode and decode wavefronts), K4 (the
-in-loop filters), the own-format path (per frame, and batched through a one-device codec mesh), the spec path's RD
+in-loop filters, standalone and as the fused decode launch's stage), the own-format path (per frame, and batched through a one-device codec mesh), the spec path's RD
 pre-pass, the pixel pipeline and animations on the card, each held against the port's own plain
 PyTorch path on the CPU.
 
@@ -198,7 +198,7 @@ def card_mesh(cuda):
 def test_batched_route_on_card_equals_cpu(cuda, card_mesh):
     """A uniform batch through the mesh: one K2 launch per plane group for
     the whole batch, bytes equal to the CPU's; its decode in one call, one
-    K3 launch per plane group, planes equal to the CPU's."""
+    fused K3 + K4 launch per plane group, planes equal to the CPU's."""
     imgs = _frames(5, 4)
     before = wavefront.encode_wavefront.launches
     files = api.encode_batch(imgs, quality=75, speed=6, codec="native", device=cuda)
@@ -212,10 +212,12 @@ def test_batched_route_on_card_equals_cpu(cuda, card_mesh):
     for data in files:
         meta = parse(data).meta
         streams.append(read_item_payload(meta, meta.items[meta.primary_item_id], data))
-    before = wavefront.decode_wavefront.launches
+    before = (wavefront.decode_filtered.launches, wavefront.decode_wavefront.launches, filters.loop_filter.launches)
     on_card = frame.decode_frames_pipelined(streams, device=cuda)
     torch.cuda.synchronize()
-    assert wavefront.decode_wavefront.launches - before == 2
+    # one fused launch (K3 with K4 behind it) per plane group; no standalone K3 or K4
+    assert (wavefront.decode_filtered.launches - before[0], wavefront.decode_wavefront.launches,
+            filters.loop_filter.launches) == (2, before[1], before[2])
     for a, b in zip(on_card, frame.decode_frames_pipelined(streams, device="cpu")):
         for pa, pb in zip(a.yuv_planes, b.yuv_planes):
             np.testing.assert_array_equal(pa, pb)
@@ -290,12 +292,14 @@ def test_decode_kernel_on_hostile_symbols(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [16, 32])
 def test_decode_kernel_with_more_lanes_than_its_grid(cuda, n):
-    """More lanes than the card holds CTAs at once, so a CTA decodes
-    several lanes one after another."""
+    """More lane groups than the card holds CTAs at once (planes of two
+    groups each, the second waiting on the first), so a CTA decodes
+    several groups one after another."""
     dc, ac = tables.step_sizes(150, 8)
     cfg = wavefront.DecodeConfig(n, 8, False, int(dc), int(ac))
-    rb = wavefront.decode_resident_ctas(cfg, cuda) + 37
-    _assert_k3_equals_plain(*_decode_symbols(n, 1, rb, 2, n, False, cuda), cfg)
+    grid = wavefront.decode_resident_ctas(cfg, cuda)
+    p = grid // 2 + 3
+    _assert_k3_equals_plain(*_decode_symbols(n, p, 2 * wavefront.LANES_PER_CTA, 2, n, False, cuda), cfg)
 
 
 @pytest.mark.cuda
@@ -321,10 +325,10 @@ def test_decode_on_card_runs_k3_and_no_k1(cuda):
     for p in img.yuv_planes:
         p[:] = rng.integers(0, 256, p.shape).astype(np.uint8)
     [data] = api.encode_batch([img], quality=75, speed=6, codec="native", device=cuda)
-    before = (wavefront.decode_wavefront.launches, cuda_kernels.transform_2d.launches)
+    before = (wavefront.decode_filtered.launches, cuda_kernels.transform_2d.launches)
     on_card = api.decode(data, device=cuda)
-    # one K3 launch for luma and one for the chroma pair
-    assert (wavefront.decode_wavefront.launches - before[0], cuda_kernels.transform_2d.launches) == (
+    # one launch of K3 (with K4 behind it) for luma and one for the chroma pair
+    assert (wavefront.decode_filtered.launches - before[0], cuda_kernels.transform_2d.launches) == (
         2, before[1])
     for pa, pb in zip(on_card.yuv_planes, api.decode(data, device="cpu").yuv_planes):
         np.testing.assert_array_equal(pa, pb)
@@ -532,10 +536,121 @@ def test_loop_filter_kernel_matches_plain_version(cuda, n, depth, shape):
 @pytest.mark.parametrize("quality", [75, 50])
 def test_decode_runs_one_loop_filter_launch_per_plane_group(cuda, quality):
     """A q75 file (CDEF) and a q50 file (deblocking and CDEF) decode on the
-    card with one K4 launch per plane group, equal to the CPU's planes."""
+    card with the filters inside one launch per plane group (the fused
+    launch's filter stage), no standalone K4 launch, equal to the CPU's
+    planes."""
     [data] = api.encode_batch(_frames(quality, 1), quality=quality, speed=6, codec="native", device=cuda)
-    before = filters.loop_filter.launches
+    before = (wavefront.decode_filtered.launches, wavefront.decode_filtered.filter_stages,
+              filters.loop_filter.launches)
     on_card = api.decode(data, device=cuda)
-    assert filters.loop_filter.launches - before == 2
+    assert (wavefront.decode_filtered.launches - before[0], wavefront.decode_filtered.filter_stages - before[1],
+            filters.loop_filter.launches - before[2]) == (2, 2, 0)
     for pa, pb in zip(on_card.yuv_planes, api.decode(data, device="cpu").yuv_planes):
         np.testing.assert_array_equal(pa, pb)
+
+
+# The fused launch: K3 with K4's tiles behind its wavefront, held against
+# the composition of the plain versions (decode_wavefront_reference, the
+# blocks laid out as planes, loop_filter_reference).
+_FILTER_SETTINGS = [(False, False), (True, False), (False, True), (True, True)]
+
+
+def _assert_fused_equals_plain(levels, modes, txs, cfg, dt, ct):
+    for deblock, cdef in _FILTER_SETTINGS:
+        before = (wavefront.decode_filtered.launches, wavefront.decode_filtered.filter_stages)
+        got = wavefront.decode_filtered(levels, modes, txs, cfg, dt, ct, deblock=deblock, cdef=cdef)
+        torch.cuda.synchronize()
+        on = wavefront.filters_on(dt, ct, deblock, cdef)
+        assert (wavefront.decode_filtered.launches - before[0],
+                wavefront.decode_filtered.filter_stages - before[1]) == (1, int(on))
+        want = wavefront.decode_filtered_reference(levels, modes, txs, cfg, dt, ct, deblock=deblock, cdef=cdef)
+        assert torch.equal(got, want), (deblock, cdef, dt, ct)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth,lossless,speed,n,shape,search", _STEP_CONFIGS)
+def test_fused_decode_matches_plain_version(cuda, depth, lossless, speed, n, shape, search):
+    """The encoder's symbols of two planes at the frame layer's
+    thresholds, then random symbols at the largest thresholds; each filter
+    alone, both and none."""
+    src = _step_planes(depth, n, shape).to(cuda)
+    dc, ac = (1, 1) if lossless else tables.step_sizes(150, depth)
+    cfg = wavefront.DecodeConfig(n, depth, lossless, int(dc), int(ac))
+    modes, levels, _, txs = recon.encode_plane(src, dc, ac, n=n, depth=depth, lossless=lossless,
+                                               speed=speed, search=search)
+    _assert_fused_equals_plain(levels, modes, txs, cfg, tables.deblock_threshold(ac, depth),
+                               tables.cdef_threshold(ac, depth))
+    _assert_fused_equals_plain(*_decode_symbols(n + depth + 1, 2, *modes.shape[1:], n, lossless, cuda), cfg,
+                               16 << (depth - 8), 12 << (depth - 8))
+
+
+@pytest.mark.cuda
+def test_fused_decode_on_hostile_symbols(cuda):
+    n, depth = 32, 12
+    rng = np.random.default_rng(3)
+    levels = torch.from_numpy(rng.integers(-32768, 32769, (1, 2, 3, n, n)).astype(np.int32)).to(cuda)
+    modes = torch.tensor([[[-50, 3, 7], [12, 200, -1]]], dtype=torch.int32, device=cuda)
+    txs = torch.tensor([[[-3, 2, 4], [7, 1, 0]]], dtype=torch.int32, device=cuda)
+    dc, ac = tables.step_sizes(200, depth)
+    _assert_fused_equals_plain(levels, modes, txs, wavefront.DecodeConfig(n, depth, False, int(dc), int(ac)),
+                               16 << (depth - 8), 12 << (depth - 8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4, 16])
+def test_fused_decode_with_more_lane_groups_than_its_grid(cuda, n):
+    dc, ac = tables.step_sizes(150, 8)
+    cfg = wavefront.DecodeConfig(n, 8, False, int(dc), int(ac))
+    grid = wavefront.decode_resident_ctas(cfg, cuda, filters=True)
+    levels, modes, txs = _decode_symbols(n * 5, grid // 2 + 3, 2 * wavefront.LANES_PER_CTA, 3, n, False, cuda)
+    _assert_fused_equals_plain(levels, modes, txs, cfg, 16, 12)
+
+
+@pytest.mark.cuda
+def test_decode_kernels_raise_on_unaligned_levels(cuda):
+    """The kernel moves four coefficients at a time: a view that starts off
+    a 16-byte boundary is refused, not decoded."""
+    levels, modes, txs = _decode_symbols(2, 1, 2, 3, 8, False, cuda)
+    shifted = torch.empty(levels.numel() + 1, dtype=torch.int32, device=cuda)[1:].view(levels.shape)
+    shifted.copy_(levels)
+    cfg = wavefront.DecodeConfig(8, 8, False, *map(int, tables.step_sizes(150, 8)))
+    with pytest.raises(ValueError, match="aligned"):
+        wavefront.decode_filtered(shifted, modes, txs, cfg, 16, 12, deblock=True, cdef=True)
+    with pytest.raises(ValueError, match="aligned"):
+        wavefront.decode_wavefront(shifted, modes, txs, torch.empty_like(levels), cfg)
+
+
+@pytest.mark.cuda
+def test_fused_decode_twice_on_one_stream(cuda):
+    levels, modes, txs = _decode_symbols(6, 2, 20, 9, 8, False, cuda)
+    cfg = wavefront.DecodeConfig(8, 10, False, *map(int, tables.step_sizes(150, 10)))
+    before = wavefront.decode_filtered.launches
+    first = wavefront.decode_filtered(levels, modes, txs, cfg, 40, 30, deblock=True, cdef=True)
+    second = wavefront.decode_filtered(levels, modes, txs, cfg, 40, 30, deblock=True, cdef=True)
+    torch.cuda.synchronize()
+    assert wavefront.decode_filtered.launches - before == 2
+    want = wavefront.decode_filtered_reference(levels, modes, txs, cfg, 40, 30, deblock=True, cdef=True)
+    assert torch.equal(first, want) and torch.equal(second, want)
+
+
+@pytest.mark.cuda
+def test_decode_frame_device_is_one_launch_per_plane_group(cuda):
+    """A 4:2:0 frame packed as the frame layer packs it: two plane groups,
+    two fused launches, no standalone K3, K4 or K1 launch; the planes equal
+    the CPU's."""
+    n, depth = 8, 8
+    img = _frames(11, 1, w=72, h=40)[0]
+    padded = [recon.pad_to_blocks(p, n) for p in img.yuv_planes]
+    geoms = tuple((p.shape[0] // n, p.shape[1] // n) for p in padded)
+    packed = torch.from_numpy(np.concatenate([p.reshape(-1) for p in padded]).astype(np.uint8))
+    dc, ac = tables.step_sizes(200, depth)
+    kw = dict(geoms=geoms, n=n, depth=depth, lossless=False)
+    symbols = recon.encode_frame_device(packed, dc, ac, **kw)
+    dt, ct = tables.deblock_threshold(ac, depth), tables.cdef_threshold(ac, depth)
+    counters = (wavefront.decode_filtered, wavefront.decode_wavefront, filters.loop_filter, cuda_kernels.transform_2d)
+    before = [c.launches for c in counters]
+    got = recon.decode_frame_device(symbols.to(cuda), dc, ac, dt, ct, deblock=True, cdef=True, **kw)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [2, 0, 0, 0]
+    want = recon.decode_frame_device(symbols, dc, ac, dt, ct, deblock=True, cdef=True, **kw)
+    assert torch.equal(got.cpu(), want)

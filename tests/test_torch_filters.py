@@ -113,24 +113,25 @@ def test_decode_frame_device_with_both_filters_matches_jax(n, depth, monkeypatch
         n=n, depth=depth, lossless=False, deblock=True, cdef=True,
     ))
     calls = []
-    real = recon.loop_filter
+    real = recon.wavefront.decode_filtered
 
-    def counted(planes, *args, **kwargs):
-        calls.append(tuple(planes.shape))
-        return real(planes, *args, **kwargs)
+    def counted(levels, modes, txs, cfg, *args, **kwargs):
+        calls.append((tuple(modes.shape), kwargs["deblock"], kwargs["cdef"]))
+        return real(levels, modes, txs, cfg, *args, **kwargs)
 
-    monkeypatch.setattr(recon, "loop_filter", counted)
+    monkeypatch.setattr(recon.wavefront, "decode_filtered", counted)
     got = recon.decode_frame_device(
         torch.from_numpy(symbols), dc, ac, thresh, cthresh, geoms=geoms, n=n, depth=depth,
         lossless=False, deblock=True, cdef=True,
     )
     np.testing.assert_array_equal(got.numpy().astype(want.dtype), want)
-    assert [c[0] for c in calls] == [1, 2]  # one call per plane group: luma, the chroma pair
+    # one call per plane group, the filters inside it: luma, the chroma pair
+    assert [(c[0][0], c[1], c[2]) for c in calls] == [(1, True, True), (2, True, True)]
     unfiltered = recon.decode_frame_device(
         torch.from_numpy(symbols), dc, ac, thresh, cthresh, geoms=geoms, n=n, depth=depth,
         lossless=False,
     )
-    assert len(calls) == 2  # both filters off: no call
+    assert [(c[1], c[2]) for c in calls[2:]] == [(False, False)] * 2  # both filters off: still one call each
     assert not torch.equal(unfiltered, got)
 
 
