@@ -59,7 +59,9 @@ Phases, each printed as it runs; any failure ends the run non-zero:
      libavif_tpu_torch.api.encode_batch(quality=75, speed=6,
      codec="native"): K2 launches 8 x 2 (luma, chroma pair), none of K1;
      then the same batch under torch.profiler (device busy share), and
-     its device stage and host entropy coding timed alone;
+     its device stage (frame by frame: upload, call, fetch; the K2
+     launches' device time) and host entropy coding timed alone
+     (bench_torch.native_split);
   5. the same first frame encoded on the CPU (plain versions): the .avif
      bytes must be identical;
   6. round trip: decode on the card, equal to the CPU decode; Y-PSNR;
@@ -67,10 +69,10 @@ Phases, each printed as it runs; any failure ends the run non-zero:
      filter stage (CDEF at q75), no standalone K3 or K4 launch, none of
      K1; the same under torch.profiler (device busy share, the fused
      launch's time, the top device entries), and its host entropy decoding
-     and device stage timed alone, the device stage also without the
-     filters; two frames encoded at q50 (deblocking and CDEF on) decoded
-     on the card with 2 x 2 fused launches with the filter stage, planes
-     equal to the CPU port's;
+     and device stage timed alone (bench_torch.decode_split), the device
+     stage also without the filters; two frames encoded at q50
+     (deblocking and CDEF on) decoded on the card with 2 x 2 fused
+     launches with the filter stage, planes equal to the CPU port's;
   7. RD tables: frame 0's luma plane through the spec encoder's RD
      pre-pass on the card and on the CPU; satd/delta equal (torch.equal),
      dist/rate within the CPU test's tolerance, the count of qcost
@@ -138,7 +140,10 @@ Phases, each printed as it runs; any failure ends the run non-zero:
      (c) host-sharded GOPs over 2 spawned processes on the card, bytes
      equal to the local encode with the same keyframes: phase 14's
      own-format GOP, and phase 13's spec content cut to 4 frames;
-     (d) utils.trace.device_trace around one own-format batch names K2.
+     (d) utils.trace.device_trace around one own-format batch names K2;
+ 19. bench: bench_torch.main() at full width on the card (its JSON line
+     printed as it is): platform cuda, correct, K2 and fused decode launches
+     16 and 16 on the per-frame route, 2 and 2 on the batched route.
 
 The last two lines are a JSON object describing each kernel, then
 {"ok": true, "device": {...}}.
@@ -158,10 +163,25 @@ import time
 import numpy as np
 import torch
 
-W, H = 768, 512
-QUALITY = 75
-SPEED = 6
-BATCH = 8
+import bench_torch
+from bench_torch import (  # the bench's frames, constants and timing code, one copy for both scripts
+    BATCH,
+    QUALITY,
+    DeviceTimes,
+    SPEED,
+    H,
+    W,
+    decode_split,
+    gradient_frames,
+    kernel_records,
+    native_split,
+    primary_obus,
+    profile_device,
+    same_planes,
+    smi_line,
+    y_psnr,
+)
+
 K1_SHAPE = (1536, 16)  # (blocks, n) of a 768x512 luma plane, K1's decode launch before K3
 # Peak rates of one H100 SXM at 700 W: HBM bytes/s (NVIDIA's data sheet)
 # and int32 multiply-adds/s of the CUDA cores (132 SMs x 64 INT32 lanes x
@@ -170,41 +190,6 @@ HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_S = 132 * 64 * 1.98e9
 FP32_FLOP_PER_S = 67e12  # outside the tensor cores: the RD program refuses TF32
 PHOTO_W, PHOTO_H = 4032, 3024  # a phone camera's 12.2 MP still
-
-
-def smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def gradient_frames():
-    """The synthetic gradients of bench.py (used there when no corpus is
-    present): two sources, cyclically row-shifted per batch slot."""
-    from libavif_tpu_torch.constants import PixelFormat
-    from libavif_tpu_torch.image import Image
-
-    sources = []
-    for seed in (1, 2):
-        img = Image(W, H, 8, PixelFormat.YUV420)
-        img.allocate_planes("yuv")
-        for c in range(3):
-            h, w = img.yuv_planes[c].shape
-            yy, xx = np.mgrid[0:h, 0:w]
-            img.yuv_planes[c][:] = ((yy * 3 + xx + seed * 37) % 256).astype(np.uint8)
-        sources.append(img)
-    imgs = []
-    for i in range(BATCH):
-        src = sources[i % len(sources)]
-        img = Image(W, H, 8, PixelFormat.YUV420)
-        img.allocate_planes("yuv")
-        for c in range(3):
-            shift = (i // len(sources)) * 16 >> (0 if c == 0 else 1)
-            img.yuv_planes[c][:] = np.roll(src.yuv_planes[c], shift, axis=0)
-        imgs.append(img)
-    return imgs
 
 
 def time_ms(fn, iters: int) -> float:
@@ -249,42 +234,6 @@ def check_k1(cuda_kernels, tables, dev):
                                  f"inverse={inverse} B={batch} max|diff|={diff}")
     print(f"[k1] {len(cases)} cases equal to the plain version (torch.equal)", flush=True)
     return worst
-
-
-class DeviceTimes(dict):
-    """Device ms by kernel name (the CUDA kernels' and copies' self device
-    time), with ``records``: how many records of each name the profiler
-    kept."""
-
-    records: dict
-
-
-def profile_device(fn, iters: int = 1):
-    """Run fn() iters times under torch.profiler. Returns (wall s,
-    DeviceTimes)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    device = DeviceTimes()
-    device.records = {}
-    for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = getattr(evt, "self_cuda_time_total", 0)
-        if us:
-            device[evt.key] = device.get(evt.key, 0.0) + us / 1e3
-            device.records[evt.key] = device.records.get(evt.key, 0) + evt.count
-    return wall, device
-
-
-def kernel_records(device: DeviceTimes, name: str) -> int:
-    return sum(n for key, n in device.records.items() if name in key)
 
 
 def kernel_ms(device: DeviceTimes, name: str, launches: int):
@@ -856,52 +805,6 @@ def check_fused(wavefront, recon, frame, tables, dev, smi):
     return numbers
 
 
-def decode_split(frame, recon, files, dev, with_filters: bool = True):
-    """Phase 6's decode in two stages timed alone: the host entropy
-    decoding of every file's tiles on the frame layer's thread pool, then
-    the device stage (upload, K3 and the filters on the card, fetch) for
-    every frame, all enqueued before the first fetch as the frame layer
-    does; with ``with_filters`` False the device stage skips the filters.
-    Returns (entropy s, device s)."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    from libavif_tpu_torch.containers.parse import parse as parse_container
-    from libavif_tpu_torch.containers.parse import read_item_payload
-
-    metas = []
-    for data in files:
-        meta = parse_container(data).meta
-        metas.append(frame._parse_own_format(read_item_payload(meta, meta.items[meta.primary_item_id], data)))
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(frame._workers()) as pool:
-        futures = [[frame._submit_plane_decode(pool, payload, rb, cb, m.n, not m.lossless)
-                    for payload, rb, cb, _, _ in m.planes] for m in metas]
-        decoded = [[frame._assemble_plane_decode(f, not m.lossless) for f in fs] for m, fs in zip(metas, futures)]
-    entropy_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    handles = []
-    for m, planes in zip(metas, decoded):
-        depth = m.seq.bit_depth
-        dc, ac = (1, 1) if m.lossless else frame.step_sizes(m.qindex, depth)
-        pack = np.int32 if m.lossless else np.int16
-        parts = []
-        for levels, modes, txs in planes:
-            if pack == np.int16:
-                levels = np.clip(levels, -32768, 32767)
-            parts += [a.reshape(-1).astype(pack) for a in (modes, txs, levels)]
-        thresh = frame.deblock_threshold(ac, depth) if m.deblock else 0
-        cthresh = frame.cdef_threshold(ac, depth) if m.cdef else 0
-        result = recon.decode_frame_device(
-            frame.upload(np.concatenate(parts), dev), dc, ac, thresh, cthresh,
-            geoms=tuple((rb, cb) for _, rb, cb, _, _ in m.planes), n=m.n, depth=depth, lossless=m.lossless,
-            deblock=with_filters and m.deblock and thresh > 0, cdef=with_filters and m.cdef and cthresh > 0)
-        handles.append(frame.start_fetch(result))
-    for h in handles:
-        frame.finish_fetch(h)
-    return entropy_s, time.perf_counter() - t0
-
-
 def table_diffs(layout, got: np.ndarray, want: np.ndarray):
     """satd/delta exact (torch.equal); dist/rate: rtol 1e-5 (1e-4 for the
     dist of 64x64 transforms) for all but 1 in 1000 entries, the
@@ -922,11 +825,6 @@ def table_diffs(layout, got: np.ndarray, want: np.ndarray):
     if off > total // 1000:
         raise AssertionError(f"{off} of {total} RD dist/rate entries outside tolerance")
     return off, total, worst
-
-
-def y_psnr(decoded, source) -> float:
-    err = decoded.yuv_planes[0].astype(np.float64) - source.yuv_planes[0]
-    return 10 * np.log10(255.0**2 / max(np.mean(err * err), 1e-12))
 
 
 def rd_bound_ms(rdsearch_device, h: int, w: int) -> tuple:
@@ -1166,12 +1064,6 @@ def pan_frames():
 def psnr(got: np.ndarray, want: np.ndarray, peak: int = 255) -> float:
     err = got.astype(np.float64) - want.astype(np.float64)
     return 10 * np.log10(peak**2 / max(np.mean(err * err), 1e-12))
-
-
-def same_planes(a, b, what: str) -> None:
-    for c, (pa, pb) in enumerate(zip(a.yuv_planes, b.yuv_planes)):
-        if (pa is None) != (pb is None) or (pa is not None and not np.array_equal(pa, pb)):
-            raise AssertionError(f"{what}: plane {c} differs")
 
 
 def encode_animation(api, frames, device, **settings) -> bytes:
@@ -1465,14 +1357,6 @@ def check_cli(smi):
           f"runs {counts[0][0]} + {counts[1][1]}, none on the CPU; on {smi}", flush=True)
 
 
-def primary_obus(data: bytes) -> bytes:
-    from libavif_tpu_torch.containers.parse import parse as parse_container
-    from libavif_tpu_torch.containers.parse import read_item_payload
-
-    meta = parse_container(data).meta
-    return read_item_payload(meta, meta.items[meta.primary_item_id], data)
-
-
 def spread(runs: list) -> str:
     return (f"best {min(runs):.4f} s, spread {max(runs) - min(runs):.4f} s (runs "
             + ", ".join(f"{r:.4f}" for r in runs) + ")")
@@ -1711,44 +1595,23 @@ def check_multi_device(api, frame, files, on_card, dev, smi, cuda_kernels, wavef
     return enc_launches, dec_launches, k4_launches, numbers
 
 
-def native_split(frame, imgs, dev):
-    """Phase 4's batch in two stages timed alone: the device stage
-    (upload, the wavefront on the card, fetch of the levels) for every
-    frame, then the host entropy coding of every frame's tiles on the
-    frame layer's thread pool. Returns (device s, entropy s)."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    from libavif_tpu_torch.codec import recon
-
-    params = frame.FrameParams(quality=QUALITY, speed=SPEED, codec="native")
-    n = params.tx_size
-    dc, ac = frame.step_sizes(params.qindex, 8)
-    torch.cuda.synchronize()
+def check_bench(smi):
+    """Phase 19: ``bench_torch.py`` at full width on the card, its JSON
+    line printed on a line of its own. Fails unless it ran on the card,
+    found its outputs correct, and went through the kernels: K2 and the
+    fused decode launch 2 a frame on the per-frame route and 2 a batch on
+    the batched route."""
     t0 = time.perf_counter()
-    results = []
-    for img in imgs:
-        padded = [recon.pad_to_blocks(p, n).astype(np.uint8) for p in img.yuv_planes]
-        geoms = tuple((p.shape[0] // n, p.shape[1] // n) for p in padded)
-        packed = np.concatenate([p.reshape(-1) for p in padded])
-        out = recon.encode_frame_device(frame.upload(packed, dev), dc, ac, geoms=geoms, n=n, depth=8,
-                                        lossless=False, speed=SPEED)
-        results.append((geoms, frame.finish_fetch(frame.start_fetch(out))))
-    device_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(frame._workers()) as pool:
-        futures = []
-        for geoms, result in results:
-            off = 0
-            for rb, cb in geoms:
-                nb = rb * cb
-                modes = result[off:off + nb].astype(np.int32).reshape(rb, cb)
-                txs = result[off + nb:off + 2 * nb].astype(np.int32).reshape(rb, cb)
-                levels = result[off + 2 * nb:off + 2 * nb + nb * n * n].astype(np.int32).reshape(rb, cb, n, n)
-                off += 2 * nb + nb * n * n
-                futures += frame._submit_plane_encode(pool, levels, modes, txs, n)
-        for f in futures:
-            f.result()
-    return device_s, time.perf_counter() - t0
+    line = bench_torch.main([])
+    want = {"per_frame": BATCH * groups_per_frame(), "batched": groups_per_frame()}
+    got = {route: (line["routes"][route]["encode_launches"], line["routes"][route]["decode_launches"])
+           for route in want}
+    if line["platform"] != "cuda" or line["correct"] is not True or got != {r: (k, k) for r, k in want.items()}:
+        raise AssertionError(f"bench: platform {line['platform']}, correct {line['correct']}, (K2, fused) "
+                             f"launches {got}, expected {want} of each")
+    print(f"[bench] bench_torch.py {line['batch']} x {line['width']}x{line['height']}: "
+          f"{line['value']:.4f} MP/s encode, {line['decode_mp_s']:.4f} MP/s decode, correct, (K2, fused) launches "
+          f"{got}; {time.perf_counter() - t0:.3f} s; on {smi}", flush=True)
 
 
 def main() -> int:
@@ -1852,10 +1715,11 @@ def main() -> int:
           f" top device entries: "
           + ", ".join(f"{k[:60]} {v:.3f} ms" for k, v in sorted(device.items(), key=lambda kv: -kv[1])[:4]),
           flush=True)
-    device_s, entropy_s = native_split(frame, imgs, dev)
-    print(f"[main] split of the same batch: device stage alone (upload, {BATCH * groups_per_frame()} K2 "
-          f"launches, fetch) {device_s:.3f} s; host entropy coding alone {entropy_s:.3f} s; on {smi}",
-          flush=True)
+    split = native_split(imgs, dev)
+    print(f"[main] split of the same batch: device stage alone {split.device_s:.4f} s (frame by frame, each "
+          f"step ending in synchronize: upload {split.upload_s:.4f} s, call {split.call_s:.4f} s with "
+          f"{BATCH * groups_per_frame()} K2 launches of {split.kernel_s:.4f} s device time, fetch "
+          f"{split.fetch_s:.4f} s); host entropy coding alone {split.entropy_s:.4f} s; on {smi}", flush=True)
 
     # 5. same bytes on the CPU
     t0 = time.perf_counter()
@@ -1928,12 +1792,13 @@ def main() -> int:
     splits = {True: [], False: []}
     for run in range(3):
         for with_filters in (True, False)[:: 1 if run % 2 == 0 else -1]:
-            splits[with_filters].append(decode_split(frame, recon, files, dev, with_filters))
-    entropy = [e for e, _ in splits[True] + splits[False]]
+            splits[with_filters].append(decode_split(files, dev, with_filters))
+    entropy = [split.entropy_s for split in splits[True] + splits[False]]
     print(f"[decode] split of the same files: host entropy decoding alone {spread(entropy)}; device stage "
-          f"alone (upload, {BATCH * groups_per_frame()} fused launches, fetch) "
-          f"{spread([d for _, d in splits[True]])}; the same without the filters "
-          f"{spread([d for _, d in splits[False]])}; in turns; on {smi}", flush=True)
+          f"alone (frame by frame: upload, call with {BATCH * groups_per_frame()} fused launches, fetch) "
+          f"{spread([split.device_s for split in splits[True]])}, the launches' device time "
+          f"{spread([split.kernel_s for split in splits[True]])}; the same without the filters "
+          f"{spread([split.device_s for split in splits[False]])}; in turns; on {smi}", flush=True)
     # two files at q50: deblocking and CDEF both on
     q50_files = encode_batch(imgs[:2], quality=50, speed=SPEED, codec="native", device=dev)
     filters.loop_filter.launches = wavefront.decode_filtered.filter_stages = 0
@@ -2052,6 +1917,9 @@ def main() -> int:
     # 18. the multi-device codec: the batched route, the dry run, host-sharded GOPs, the trace
     batch_k2, batch_k3, batch_k4, batched = check_multi_device(api, frame, files, on_card, dev, smi, cuda_kernels,
                                                                wavefront, recon, tables, fused)
+
+    # 19. the bench, through its own entry point
+    check_bench(smi)
 
     def batched_numbers(kernel_name: str, launches: int) -> dict:
         return {"launches": launches, **{name: rows[kernel_name] for name, rows in batched.items()}}

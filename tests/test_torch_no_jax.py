@@ -15,7 +15,9 @@ then ``python -m libavif_tpu_torch.cli.avifenc``, ``avifdec`` and
 module of the port and reports where each was loaded from. Before that it
 runs the multi-device codec on a mesh of two ``cpu`` devices (sharded
 cells, the halo, a sharded ``encode_batch``), a ``device_trace``, the
-``entry`` step and the interop oracles' ``available()``.
+``entry`` step and the interop oracles' ``available()``. A second
+subprocess, blocked the same way, runs ``bench_torch.py`` (the port's
+bench) at a CPU size.
 
 The JAX package's host code that imports no jax is copied into the port
 at the same relative paths (``COPIED``); each copy equals its reference
@@ -34,7 +36,7 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "libavif_tpu_torch"
 REFERENCE = REPO / "libavif_tpu"
 
-_SCRIPT = r"""
+_BLOCKING = r"""
 import builtins, json, os, sys
 sys.modules["jax"] = None
 sys.modules["libavif_tpu"] = None
@@ -47,7 +49,9 @@ def _recording_import(name, globals=None, locals=None, fromlist=(), level=0):
     return _real_import(name, globals, locals, fromlist, level)
 
 builtins.__import__ = _recording_import
+"""
 
+_SCRIPT = _BLOCKING + r"""
 import numpy as np
 import libavif_tpu_torch
 from libavif_tpu_torch.api import decode, encode_batch
@@ -184,6 +188,25 @@ print(json.dumps({
 """
 
 
+_BENCH_SCRIPT = _BLOCKING + r"""
+import contextlib, io
+import bench_torch
+
+printed = io.StringIO()
+with contextlib.redirect_stdout(printed):
+    line = bench_torch.main(["--device", "cpu", "--width", "128", "--height", "96", "--batch", "2",
+                             "--runs", "2", "--spec-frames", "1", "--no-baseline"])
+print(json.dumps({
+    "blocked": sorted(name for name in sys.modules if name.split(".")[0] in ("jax", "libavif_tpu")),
+    "attempts": attempts,
+    "lines": printed.getvalue().count("\n"),
+    "printed_is_returned": json.loads(printed.getvalue()) == line,
+    "platform": line["platform"],
+    "correct": line["correct"],
+}))
+"""
+
+
 @pytest.fixture(scope="module")
 def blocked_run(tmp_path_factory):
     """The subprocess's result, run once for the module."""
@@ -218,6 +241,23 @@ def test_port_imports_and_runs_without_jax(blocked_run):
     assert result["entry"] == [[16, 16], 1, True]
     assert result["oracles"] == [True, True, True]
     assert set(result["modules"]) == set(PORT_MODULES)
+
+
+def test_bench_runs_without_jax(tmp_path):
+    """``bench_torch.main`` at the CPU test size in a blocked process: no
+    attempt to import either package; one JSON line, the line it returns,
+    on the CPU, correct. One intra-op thread: the run's tensors are tiny,
+    and the suite's other workers run beside it."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _BENCH_SCRIPT],
+        cwd=tmp_path,
+        env={"PYTHONPATH": str(REPO), "PATH": "/usr/bin:/bin", "HOME": str(tmp_path), "OMP_NUM_THREADS": "1"},
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert result == {"blocked": ["jax", "libavif_tpu"], "attempts": [], "lines": 1, "printed_is_returned": True,
+                      "platform": "cpu", "correct": True}
 
 
 def _module_name(path: pathlib.Path) -> str:
@@ -353,7 +393,7 @@ _JAX_PACKAGE_IMPORT = re.compile(
 )
 
 
-@pytest.mark.parametrize("path", ["libavif_tpu_torch", "chip_smoke.py", "tests/test_torch_cuda.py"])
+@pytest.mark.parametrize("path", ["libavif_tpu_torch", "chip_smoke.py", "bench_torch.py", "tests/test_torch_cuda.py"])
 def test_no_jax_package_import_in_port_sources(path):
     """No ``libavif_tpu`` import that is not ``libavif_tpu_torch``."""
     target = REPO / path
@@ -398,7 +438,7 @@ def test_shared_planner_reaches_the_ports_rd_program(monkeypatch):
     assert len(calls) == 1 and plan.dev_deltas is not None
 
 
-@pytest.mark.parametrize("path", ["libavif_tpu_torch", "chip_smoke.py"])
+@pytest.mark.parametrize("path", ["libavif_tpu_torch", "chip_smoke.py", "bench_torch.py"])
 def test_no_jax_import_in_port_sources(path):
     target = REPO / path
     files = [target] if target.is_file() else sorted(target.rglob("*.py"))

@@ -5,7 +5,7 @@ On the machine with the card, from the root of a checkout:
     python3 tools/decode_walls.py [--tree DIR] [--runs N]
 
 Imports ``libavif_tpu_torch`` from DIR (default: this checkout), encodes
-``chip_smoke.py``'s 8 gradient frames (768x512 4:2:0 8-bit, q75 speed 6,
+``bench_torch.py``'s 8 gradient frames (768x512 4:2:0 8-bit, q75 speed 6,
 own format) on the card, and times, N runs of each in turns, on the host
 clock ending in ``torch.cuda.synchronize()``:
 
@@ -13,7 +13,7 @@ clock ending in ``torch.cuda.synchronize()``:
   - the batched route: the 8 streams in one ``decode_frames_pipelined``
     call through a one-device codec mesh (phase 18);
   - the device stage alone, with and without the in-loop filters, and the
-    host entropy decoding alone (``chip_smoke.decode_split``).
+    host entropy decoding alone (``bench_torch.decode_split``).
 
 Prints one JSON line: the tree, the card's name and power limit, each
 measurement's runs, best and median. To compare a parent with a change,
@@ -44,21 +44,21 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("decode_walls: no CUDA device available", file=sys.stderr)
         return 1
-    # this checkout's chip_smoke.py, whichever tree the package comes from
-    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
+    # this checkout's bench_torch.py, whichever tree the package comes from
+    spec = importlib.util.spec_from_file_location("bench_torch", REPO / "bench_torch.py")
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
     import libavif_tpu_torch
     from libavif_tpu_torch import api
-    from libavif_tpu_torch.codec import frame, recon
+    from libavif_tpu_torch.codec import frame
     from libavif_tpu_torch.ops import _build
     from libavif_tpu_torch.parallel import shard
 
     dev = torch.device("cuda", 0)
     _build.load()
-    files = api.encode_batch(cs.gradient_frames(), quality=cs.QUALITY, speed=cs.SPEED, codec="native",
+    files = api.encode_batch(bench.gradient_frames(), quality=bench.QUALITY, speed=bench.SPEED, codec="native",
                              device=dev)
-    streams = [cs.primary_obus(data) for data in files]
+    streams = [bench.primary_obus(data) for data in files]
     mesh = shard.make_codec_mesh(1)
 
     def per_frame():
@@ -86,13 +86,13 @@ def main() -> int:
         for name in ("per_frame", "batched")[:: 1 if run % 2 == 0 else -1]:
             runs[name].append(timed(per_frame if name == "per_frame" else batched))
         for with_filters in (True, False)[:: 1 if run % 2 == 0 else -1]:
-            entropy_s, device_s = cs.decode_split(frame, recon, files, dev, with_filters)
-            runs["device" if with_filters else "device_no_filters"].append(device_s)
-            runs["entropy"].append(entropy_s)
+            split = bench.decode_split(files, dev, with_filters)
+            runs["device" if with_filters else "device_no_filters"].append(split.device_s)
+            runs["entropy"].append(split.entropy_s)
     print(json.dumps({
         "tree": args.tree,
         "package": str(pathlib.Path(libavif_tpu_torch.__file__).parent),
-        "card": cs.smi_line(),
+        "card": bench.smi_line(),
         **{k: {"best": min(v), "median": statistics.median(v), "runs": v} for k, v in runs.items()},
     }), flush=True)
     return 0
