@@ -11,11 +11,21 @@ Phases, each printed as it runs; any failure ends the run non-zero:
      (csrc/decode_wavefront.cu) and K4 alone (csrc/loop_filter.cu, its
      tile in csrc/loop_filter.cuh) from the sources, one nvcc per source,
      in parallel;
+ 2b. no device named: Encoder() takes the card; an encode_batch of the 8
+     gradient frames with no device= launches K2 16 times (bytes equal
+     to phase 4's); a child process with CUDA_VISIBLE_DEVICES="" that
+     calls encode_batch with no device exits non-zero with the
+     RuntimeError on stderr and writes nothing;
   3. K1 on the card against its plain PyTorch version, every transform
      type and size, forward and inverse, with inputs that wrap int32;
      both timed at a 768x512 luma plane's shape (1536 blocks of 16x16,
      inverse; K1's decode launch before K3 took it in), the kernel also
-     device-only from torch.profiler;
+     device-only from torch.profiler; then K1 at every n, forward and
+     inverse (DCT), with B the blocks of a 768x512 and of a 4032x3024
+     plane, each launch equal to the plain version (torch.equal), timed
+     device-only (device_ms) and by CUDA event pairs, with the plain
+     version's time, the bound and the launch floor (an empty kernel
+     launched through the same ctypes path, timed by event pairs);
  3b. K2, the encode wavefront (one persistent launch per plane group),
      on the card against the plain per-diagonal loop (torch.equal) for n
      in {4, 8, 16, 32}, depths 8/10/12, speeds 0/3/6/9 and lossless, a
@@ -190,6 +200,7 @@ HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_S = 132 * 64 * 1.98e9
 FP32_FLOP_PER_S = 67e12  # outside the tensor cores: the RD program refuses TF32
 PHOTO_W, PHOTO_H = 4032, 3024  # a phone camera's 12.2 MP still
+K1_PLANES = ((W, H), (PHOTO_W, PHOTO_H))  # K1's table: B = the n x n blocks of each plane
 
 
 def time_ms(fn, iters: int) -> float:
@@ -203,6 +214,50 @@ def time_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+# A child process that asks for an encode with no device named while it
+# sees no card; it writes the file named by its first argument.
+_NO_DEVICE_CHILD = """
+import pathlib, sys
+from bench_torch import QUALITY, SPEED, gradient_frames
+from libavif_tpu_torch import api
+files = api.encode_batch(gradient_frames(batch=1), quality=QUALITY, speed=SPEED, codec="native")
+pathlib.Path(sys.argv[1]).write_bytes(files[0])
+print(len(files[0]))
+"""
+
+
+def check_no_device(api, wavefront, cuda_kernels) -> list:
+    """Phase 2b: with no device named the port runs on the card, and in a
+    process that sees no card it raises. Returns the batch's files."""
+    enc_device = api.Encoder().device
+    if enc_device.type != "cuda":
+        raise AssertionError(f"Encoder() with no device named took {enc_device}")
+    wavefront.encode_wavefront.launches = cuda_kernels.transform_2d.launches = 0
+    files = api.encode_batch(gradient_frames(), quality=QUALITY, speed=SPEED, codec="native")
+    launches = (wavefront.encode_wavefront.launches, cuda_kernels.transform_2d.launches)
+    if launches != (BATCH * groups_per_frame(), 0):
+        raise AssertionError(f"encode_batch with no device named: K2, K1 launches {launches}, expected "
+                             f"{(BATCH * groups_per_frame(), 0)}")
+    repo = pathlib.Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        out = pathlib.Path(tmp) / "out.avif"
+        proc = subprocess.run(
+            [sys.executable, "-c", _NO_DEVICE_CHILD, str(out)], cwd=repo,
+            env={**os.environ, "PYTHONPATH": str(repo), "CUDA_VISIBLE_DEVICES": ""},
+            capture_output=True, text=True, timeout=300,
+        )
+        wrote = out.exists()
+    if proc.returncode == 0 or "RuntimeError" not in proc.stderr or "no CUDA device" not in proc.stderr \
+            or wrote or proc.stdout:
+        raise AssertionError(f"encode_batch with no card and no device named: exit {proc.returncode}, file "
+                             f"written {wrote}, stdout {proc.stdout[-500:]!r}, stderr {proc.stderr[-2000:]!r}")
+    error = [line for line in proc.stderr.splitlines() if line.startswith("RuntimeError")][-1]
+    print(f"[no-device] Encoder().device {enc_device}; encode_batch of {BATCH} frames with no device named: K2 "
+          f"launches {launches[0]}, K1 launches {launches[1]}; with CUDA_VISIBLE_DEVICES=\"\" the child exits "
+          f"{proc.returncode}, no file written, stderr: {error}", flush=True)
+    return files
 
 
 def check_k1(cuda_kernels, tables, dev):
@@ -234,6 +289,76 @@ def check_k1(cuda_kernels, tables, dev):
                                  f"inverse={inverse} B={batch} max|diff|={diff}")
     print(f"[k1] {len(cases)} cases equal to the plain version (torch.equal)", flush=True)
     return worst
+
+
+def k1_bound_ms(b: int, n: int) -> tuple:
+    """K1's bound for B blocks of n x n: the larger of its bytes (each
+    block read and written once, the bases read once) over HBM's rate and
+    its 2·B·n³ multiply-adds over the int32 lanes' rate. Returns (ms,
+    "bytes" or "operations")."""
+    ops_ms = 2 * b * n**3 / IMAD_PER_S * 1e3
+    bytes_ms = 4 * (2 * b * n * n + 2 * n * n) / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def empty_launch_ms(lib, iters: int = 200) -> float:
+    """Median device time of an empty kernel launched through the kernel
+    library's ctypes path (avt_empty_launch), from CUDA event pairs as
+    launch_ms takes them: the launch floor that a kernel's bound leaves
+    out."""
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        rc = lib.avt_empty_launch(stream)
+        if rc != 0:
+            raise RuntimeError(f"empty launch failed: CUDA error {rc}")
+
+    pairs = launch_ms(launch, iters)
+    return pairs[len(pairs) // 2]
+
+
+def k1_table(cuda_kernels, tables, floor_ms, smi, iters: int = 50) -> list:
+    """K1 at every n, forward and inverse (DCT), with B the n x n blocks
+    of each plane of K1_PLANES (the bottom row padded to a block), on
+    seeded inputs in [-2048, 2048): each launch held against the plain
+    version (torch.equal), then timed device-only (device_ms), by CUDA
+    event pairs (median), and the plain version by CUDA events. One row
+    a shape, each printed beside its bound, the launch floor
+    ``floor_ms`` (None when not measured) and the card."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+    for w, h in K1_PLANES:
+        for n in cuda_kernels.TX_SIZES:
+            b = -(-w // n) * -(-h // n)
+            x = torch.randint(-2048, 2048, (b, n, n), dtype=torch.int32, device="cuda", generator=gen)
+            for inverse in (False, True):
+                ck, rk = cuda_kernels._bases(0, n, inverse, str(x.device))
+                s1, s2 = (tables.COS_BIT, tables.COS_BIT + 3) if inverse else (tables.COS_BIT - 2, tables.COS_BIT - 1)
+
+                def kernel():
+                    return cuda_kernels.transform_2d(x, ck, rk, s1, s2)
+
+                def plain():
+                    return cuda_kernels.transform_2d_reference(x, ck, rk, s1, s2)
+
+                if not torch.equal(kernel(), plain()):
+                    raise AssertionError(f"K1 differs from its plain version: {w}x{h} n={n} inverse={inverse} B={b}")
+                ms, source = device_ms(kernel, "transform2d_kernel", cuda_kernels.transform_2d, iters)
+                pairs = launch_ms(kernel, iters)
+                plain_ms = time_ms(plain, 3)
+                bound, bound_by = k1_bound_ms(b, n)
+                row = {"plane": f"{w}x{h}", "n": n, "inverse": inverse, "blocks": b, "ms": ms,
+                       "ms_from": source, "event_pair_ms": pairs[len(pairs) // 2], "plain_ms": plain_ms,
+                       "bound_ms": bound, "bound_by": bound_by, "of_bound": bound / ms,
+                       "launch_floor_ms": floor_ms}
+                rows.append(row)
+                floor = "not measured" if floor_ms is None else f"{floor_ms:.5f} ms"
+                print(f"[k1] {w}x{h} n={n} {'inverse' if inverse else 'forward'} B={b}: equal to the plain "
+                      f"version; kernel {ms:.5f} ms ({source}), event pairs {row['event_pair_ms']:.5f} ms, plain "
+                      f"{plain_ms:.5f} ms; bound {bound:.5f} ms ({bound_by}), {100 * bound / ms:.1f}% of it; "
+                      f"launch floor {floor}; on {smi}", flush=True)
+            del x
+    return rows
 
 
 def kernel_ms(device: DeviceTimes, name: str, launches: int):
@@ -1645,6 +1770,11 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             print(f"[build] {line.strip()}", flush=True)
 
+    # 2b. with no device named the port takes the card, and raises where it finds none
+    from libavif_tpu_torch import api
+
+    no_device_files = check_no_device(api, wavefront, cuda_kernels)
+
     # 3. K1 against its plain version, at the decode path's shape
     max_err = check_k1(cuda_kernels, tables, dev)
     b, n = K1_SHAPE
@@ -1666,14 +1796,15 @@ def main() -> int:
     p2 = time_ms(plain, 200)
     k1_dev, k1_source = device_ms(kernel, "transform2d_kernel", cuda_kernels.transform_2d, 50)
     k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
-    k1_bytes = 4 * (2 * b * n * n + 2 * n * n)
-    k1_ops_ms, k1_bytes_ms = 2 * b * n**3 / IMAD_PER_S * 1e3, k1_bytes / HBM_BYTES_PER_S * 1e3
-    k1_bound = max(k1_ops_ms, k1_bytes_ms)
-    k1_bound_by = "operations" if k1_ops_ms >= k1_bytes_ms else "bytes"
+    k1_bound, k1_bound_by = k1_bound_ms(b, n)
     print(f"[k1] B={b} n={n} inverse DCT: kernel device {k1_dev:.5f} ms "
           f"({k1_source}), call {k_ms:.5f} ms, plain {p_ms:.5f} ms (CUDA events, runs "
           f"{k1:.5f}/{k2:.5f} vs {p1:.5f}/{p2:.5f}); bound {k1_bound:.5f} ms ({k1_bound_by}); on {smi}",
           flush=True)
+    k1_floor = empty_launch_ms(_build.load())
+    print(f"[k1] launch floor: an empty kernel through the same ctypes path, {k1_floor:.5f} ms (median of "
+          f"CUDA event pairs around 200 launches); on {smi}", flush=True)
+    k1_rows = k1_table(cuda_kernels, tables, k1_floor, smi)
 
     # 3b. K2 against its plain version
     step = check_step(wavefront, recon, tables, dev, smi)
@@ -1702,6 +1833,8 @@ def main() -> int:
     if launches != (BATCH * groups_per_frame(), 0):
         raise AssertionError(f"K2, K1 launches {launches}, expected {(BATCH * groups_per_frame(), 0)}")
     step_launches = launches[0]
+    if files != no_device_files:
+        raise AssertionError("the batch encoded with no device named differs from the batch on the card")
     mps = BATCH * W * H / 1e6 / dt
     print(f"[main] {BATCH} x {W}x{H} q{QUALITY} s{SPEED}: {dt:.3f} s, {mps:.4f} MP/s, "
           f"K2 launches {launches[0]}, K1 launches {launches[1]}, {sum(map(len, files))} bytes, on {smi}",
@@ -1939,6 +2072,8 @@ def main() -> int:
             "bound_ms": k1_bound,
             "bound_by": k1_bound_by,
             "library_ms": None,  # no PyTorch call: CUDA has no int32 matmul, and K1 rounds between passes
+            "launch_floor_ms": k1_floor,
+            "shapes": k1_rows,  # every n, both directions, 768x512 and 4032x3024 planes
         },
         {
             "name": "encode_wavefront",

@@ -36,7 +36,12 @@ scale,iccmaker}``, ``io_formats/{png_jpeg,y4m,jpeg_gainmap}``,
 numpy arrays and bytes.
 
 Every public function that touches a device takes ``device=``; the
-default is ``default_device()``. There is no global device state.
+default is ``default_device()``: the default device the caller chose
+through PyTorch (``torch.set_default_device`` or ``with
+torch.device(...):``), else CUDA. Without a CUDA device and without a
+choice it raises: the port runs on the CPU only when asked, by
+``device="cpu"`` or ``torch.set_default_device("cpu")``. The port keeps
+no device state of its own.
 
 The top level re-exports the JAX package's names (result codes, the
 enums, ``Image`` and its boxes, ``GainMap``), from the port's own
@@ -82,8 +87,31 @@ __version__ = VERSION
 
 
 def default_device() -> torch.device:
-    """``cuda`` when a CUDA device is available, else ``cpu``."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The device of a call that names none: the default device chosen
+    through PyTorch (the innermost ``with torch.device(...):`` block, else
+    ``torch.set_default_device``'s), else ``cuda`` when a CUDA device is
+    available. Raises ``RuntimeError`` otherwise: the port takes the CPU
+    only when asked.
+
+    The choice is found as ``torch.get_default_device`` finds it, which
+    answers ``cpu`` when nothing was chosen. PyTorch keeps it per thread,
+    so each entry point calls this once, in the caller's thread, and
+    passes the device down."""
+    from torch.overrides import _get_current_function_mode_stack
+    from torch.utils._device import DeviceContext
+
+    for mode in reversed(_get_current_function_mode_stack()):
+        if isinstance(mode, DeviceContext):
+            return torch.device(mode.device)
+    context = getattr(torch._GLOBAL_DEVICE_CONTEXT, "device_context", None)
+    if context is not None:
+        return torch.device(context.device)
+    if torch.cuda.is_available():
+        return torch.device("cuda")
+    raise RuntimeError(
+        "libavif_tpu_torch: no CUDA device found; pass device=\"cpu\" or call "
+        "torch.set_default_device(\"cpu\") to run on the CPU"
+    )
 
 
 __all__ = [

@@ -649,12 +649,10 @@ def decode_frames_pipelined(streams: list[bytes], device=None) -> list[Image]:
     entropy for all tiles on one pool, every frame's device work enqueued
     before any fetch. A batch with any spec-AV1 stream decodes one stream
     at a time."""
+    device = torch.device(device) if device is not None else default_device()
     if any(_is_spec_av1(d) for d in streams):
         return [decode_frame(d, device=device) for d in streams]
-    return _decode(
-        [_parse_own_format(d) for d in streams],
-        torch.device(device) if device is not None else default_device(),
-    )
+    return _decode([_parse_own_format(d) for d in streams], device)
 
 
 def _last_temporal_unit(data: bytes) -> bytes:
@@ -679,12 +677,10 @@ def decode_frame(data: bytes, width: int = 0, height: int = 0, stream=None,
     on the host, whatever ``device`` is; with ``stream`` (a
     ``codec.av1.stream.StreamDecoder``, one per track) it decodes against
     the frames the stream decoded before it."""
+    device = torch.device(device) if device is not None else default_device()
     if _is_spec_av1(data):
         return _decode_frame_spec(_last_temporal_unit(data), width, height, stream)
-    return _decode(
-        [_parse_own_format(data, width, height)],
-        torch.device(device) if device is not None else default_device(),
-    )[0]
+    return _decode([_parse_own_format(data, width, height)], device)[0]
 
 
 def _decode_device(key: tuple, packed: torch.Tensor) -> torch.Tensor:

@@ -14,6 +14,8 @@
 // One thread computes one output element (i, j), or four along j (the
 // *4 forms); the operands are in shared memory, row-major, with rk held
 // transposed (rkT[k*N + j] = rk[j][k]) so that the row pass reads along j.
+// The 4x4 form computes a 4 x 4 tile of either pass from two k-major
+// operands, so that each 16-byte load of one feeds sixteen multiply-adds.
 
 #pragma once
 
@@ -83,6 +85,34 @@ __device__ __forceinline__ int4 row_pass4(const int32_t* t, const int32_t* rkT, 
   }
   return make_int4(round2_wrap(a0, shift), round2_wrap(a1, shift), round2_wrap(a2, shift),
                    round2_wrap(a3, shift));
+}
+
+// Rows i0 .. i0 + 3, columns j0 .. j0 + 3 of round2(a · b, shift) for
+// n x n a and b, both held k-major: aT[k*N + i] = a[i][k] and
+// b[k*N + j]; i0 and j0 multiples of 4, aT and b 16-byte aligned. The
+// column pass is (aT, b) = (ck transposed, x), the row pass (t
+// transposed, rkT). Per k: one 16-byte load of each, 16 multiply-adds.
+template <int N>
+__device__ __forceinline__ void pass4x4(const int32_t* aT, const int32_t* b, int i0, int j0, int shift,
+                                        int4 (&rows)[4]) {
+  uint32_t acc[4][4] = {};
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const int4 av = *reinterpret_cast<const int4*>(aT + k * N + i0);
+    const int4 bv = *reinterpret_cast<const int4*>(b + k * N + j0);
+    const uint32_t a[4] = {(uint32_t)av.x, (uint32_t)av.y, (uint32_t)av.z, (uint32_t)av.w};
+    const uint32_t c[4] = {(uint32_t)bv.x, (uint32_t)bv.y, (uint32_t)bv.z, (uint32_t)bv.w};
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[r][q] += a[r] * c[q];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    rows[r] = make_int4(round2_wrap(acc[r][0], shift), round2_wrap(acc[r][1], shift),
+                        round2_wrap(acc[r][2], shift), round2_wrap(acc[r][3], shift));
+  }
 }
 
 }  // namespace avt

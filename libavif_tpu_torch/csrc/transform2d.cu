@@ -7,22 +7,33 @@
 //     out = round2(t · rkᵀ, s2)       (row pass)
 //
 // with int32 two's-complement wraparound (transform.cuh holds the exact
-// integer core, which the encode step kernel shares).
+// integer core, which the encode and decode wavefronts share).
 //
-// What bounds it on this card: on the main path it runs on decode, one
-// launch per transform type per plane group (B = 1536 blocks of 16 x 16
-// for a 768x512 luma plane): one launch reads and writes about 3 MB and
-// does 2·B·n³ ≈ 12.6 M multiply-adds, about a microsecond of HBM traffic
-// or of the CUDA cores' int32 IMAD rate, so the launch latency (a few
-// microseconds) bounds it, not bytes or operations.
+// What bounds it on this card: each block is read once and written once
+// (8·n² bytes) and needs 2·n³ multiply-adds, which have no exact tensor-
+// core form (no int32 product; the int8 paths cannot hold 12-bit bases
+// times int32 inputs), so they run on the CUDA cores' int32 lanes. At
+// n <= 16 the bytes bound it, at n = 32 the multiply-adds. For a 768x512
+// plane (B = 1536 at n = 16) the launch itself takes longer than either.
 //
-// What the design does about it: one launch does both passes. A CTA
-// holds one or more whole blocks plus both bases in shared memory, one
-// thread owns one output element, and the intermediate t never leaves
-// shared memory (the Pallas version relays t through XLA between two
-// kernels). Small blocks (n = 4, 8) pack several blocks into one CTA so
-// each CTA still has 256 threads. Tensor cores are not used: they have
-// no exact int32 product, and this kernel is launch-bound.
+// What the design does about it:
+//   - a thread computes a 4 x 4 tile of each pass (avt::pass4x4), the
+//     operands held k-major in shared memory, so one 16-byte shared load
+//     of each operand feeds 16 multiply-adds;
+//   - a CTA of 128 threads takes 128 / (n/4)² whole blocks a step, and
+//     the grid is the CTAs that fit on the card at once, each walking the
+//     steps with a grid stride: the bases are transposed into shared
+//     memory once per CTA, not once per block;
+//   - a step's blocks are contiguous in device memory, so its load and its
+//     store are each one coalesced run of 16-byte accesses; the output
+//     goes through shared memory to get there (a thread's own 4 x 4 tile
+//     written straight out touches 8-16 lines a warp store);
+//   - each thread issues the next step's loads into registers before it
+//     computes the current one;
+//   - the intermediate t never leaves shared memory: the column pass
+//     stores it transposed, which is the k-major form the row pass reads;
+//   - blocks sit n words apart in shared memory, so the 16-byte loads of
+//     one warp from several blocks fall in different banks.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -31,63 +42,128 @@
 
 namespace {
 
-template <int N>
-struct Geometry {
-  static constexpr int kElems = N * N;
-  // Blocks per CTA: 256 threads for n <= 16, one 1024-thread block at n = 32.
-  static constexpr int kBlocks = kElems >= 256 ? 1 : 256 / kElems;
-  static constexpr int kThreads = kBlocks * kElems;
-};
+constexpr int kThreads = 128;
 
 template <int N>
-__global__ void __launch_bounds__(Geometry<N>::kThreads)
+struct Geometry {
+  static constexpr int kTiles = (N / 4) * (N / 4);        // 4 x 4 tiles of a block, one a thread
+  static constexpr int kBlocks = kThreads / kTiles;       // blocks a step: 128, 32, 8, 2
+  static constexpr int kStride = N * N + N;               // words between blocks in shared memory
+  static constexpr int kVecs = kBlocks * N * N / 4 / kThreads;  // 16-byte loads a thread a step (4)
+  static_assert(kBlocks * kTiles == kThreads && kVecs * 4 * kThreads == kBlocks * N * N, "geometry");
+};
+
+// The int4 vectors of step `step` this thread loads (zeros past the batch).
+template <int N>
+__device__ __forceinline__ void load_step(const int4* __restrict__ x, long long vecs, int step,
+                                          int4 (&staged)[Geometry<N>::kVecs]) {
+  using G = Geometry<N>;
+  const long long base = (long long)step * (G::kBlocks * N * N / 4) + threadIdx.x;
+#pragma unroll
+  for (int r = 0; r < G::kVecs; ++r) {
+    const long long v = base + r * kThreads;
+    staged[r] = v < vecs ? __ldg(x + v) : make_int4(0, 0, 0, 0);
+  }
+}
+
+template <int N>
+__global__ void __launch_bounds__(kThreads)
 transform2d_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ ck,
                    const int32_t* __restrict__ rk, int32_t* __restrict__ out,
                    int batch, int shift1, int shift2) {
-  constexpr int kElems = Geometry<N>::kElems;
-  constexpr int kBlocks = Geometry<N>::kBlocks;
-  __shared__ int32_t s_ck[kElems];   // ck[i][k] at i*N+k
-  __shared__ int32_t s_rkT[kElems];  // rk[j][k] at k*N+j: row pass reads along j
-  __shared__ int32_t s_x[kBlocks][kElems];
-  __shared__ int32_t s_t[kBlocks][kElems];
+  using G = Geometry<N>;
+  __shared__ __align__(16) int32_t s_ckT[N * N];  // ck[i][k] at k*N+i
+  __shared__ __align__(16) int32_t s_rkT[N * N];  // rk[j][k] at k*N+j
+  __shared__ __align__(16) int32_t s_x[G::kBlocks * G::kStride];   // x[k][j] at k*N+j
+  __shared__ __align__(16) int32_t s_tT[G::kBlocks * G::kStride];  // t[i][k] at k*N+i
+  __shared__ __align__(16) int32_t s_o[G::kBlocks * G::kStride];   // out[i][j] at i*N+j
 
   const int tid = threadIdx.x;
-  for (int m = tid; m < kElems; m += blockDim.x) {
-    s_ck[m] = ck[m];
-    s_rkT[(m % N) * N + m / N] = rk[m];
+  for (int m = tid; m < N * N; m += kThreads) {
+    const int mt = (m % N) * N + m / N;
+    s_ckT[mt] = ck[m];
+    s_rkT[mt] = rk[m];
   }
-  const int local = tid / kElems;
-  const int e = tid % kElems;
-  const long long b = (long long)blockIdx.x * kBlocks + local;
-  const bool valid = b < batch;
-  s_x[local][e] = valid ? x[b * kElems + e] : 0;
-  __syncthreads();
+  const int steps = (batch + G::kBlocks - 1) / G::kBlocks;
+  const long long vecs = (long long)batch * (N * N / 4);
+  const int4* xv = reinterpret_cast<const int4*>(x);
+  const int g = tid / G::kTiles, tile = tid % G::kTiles;
+  const int i0 = 4 * (tile / (N / 4)), j0 = 4 * (tile % (N / 4));
+  int32_t* const my_x = s_x + g * G::kStride;
+  int32_t* const my_tT = s_tT + g * G::kStride;
+  int32_t* const my_o = s_o + g * G::kStride;
 
-  const int i = e / N, j = e % N;
-  s_t[local][e] = avt::column_pass<N>(s_ck, s_x[local], i, j, shift1);
-  __syncthreads();
+  int4 staged[G::kVecs];
+  int step = blockIdx.x;
+  if (step < steps) load_step<N>(xv, vecs, step, staged);
+  for (; step < steps; step += gridDim.x) {
+#pragma unroll
+    for (int r = 0; r < G::kVecs; ++r) {
+      const int v = tid + r * kThreads;
+      const int blk = v / (N * N / 4), w = v % (N * N / 4);
+      *reinterpret_cast<int4*>(s_x + blk * G::kStride + 4 * w) = staged[r];
+    }
+    __syncthreads();
+    if (step + (int)gridDim.x < steps) load_step<N>(xv, vecs, step + gridDim.x, staged);
 
-  const int32_t v = avt::row_pass<N>(s_t[local], s_rkT, i, j, shift2);
-  if (valid) out[b * kElems + e] = v;
+    int4 t[4];
+    avt::pass4x4<N>(s_ckT, my_x, i0, j0, shift1, t);
+    *reinterpret_cast<int4*>(my_tT + (j0 + 0) * N + i0) = make_int4(t[0].x, t[1].x, t[2].x, t[3].x);
+    *reinterpret_cast<int4*>(my_tT + (j0 + 1) * N + i0) = make_int4(t[0].y, t[1].y, t[2].y, t[3].y);
+    *reinterpret_cast<int4*>(my_tT + (j0 + 2) * N + i0) = make_int4(t[0].z, t[1].z, t[2].z, t[3].z);
+    *reinterpret_cast<int4*>(my_tT + (j0 + 3) * N + i0) = make_int4(t[0].w, t[1].w, t[2].w, t[3].w);
+    __syncthreads();
+
+    int4 o[4];
+    avt::pass4x4<N>(my_tT, s_rkT, i0, j0, shift2, o);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) *reinterpret_cast<int4*>(my_o + (i0 + r) * N + j0) = o[r];
+    __syncthreads();
+
+    // s_o is written again only after the next step's two barriers
+    const long long base = (long long)step * (G::kBlocks * N * N / 4);
+#pragma unroll
+    for (int r = 0; r < G::kVecs; ++r) {
+      const int v = tid + r * kThreads;
+      const int blk = v / (N * N / 4), w = v % (N * N / 4);
+      if (base + v < vecs)
+        reinterpret_cast<int4*>(out)[base + v] = *reinterpret_cast<const int4*>(s_o + blk * G::kStride + 4 * w);
+    }
+  }
 }
 
 template <int N>
 cudaError_t launch(const int32_t* x, const int32_t* ck, const int32_t* rk, int32_t* out,
                    int batch, int shift1, int shift2, cudaStream_t stream) {
-  const int grid = (batch + Geometry<N>::kBlocks - 1) / Geometry<N>::kBlocks;
-  transform2d_kernel<N><<<grid, Geometry<N>::kThreads, 0, stream>>>(
-      x, ck, rk, out, batch, shift1, shift2);
+  // CTAs resident on one SM (the same on every card of one kind), asked once
+  static const int per_sm = [] {
+    int v = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&v, transform2d_kernel<N>, kThreads, 0);
+    return v > 0 ? v : 1;
+  }();
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const int steps = (batch + Geometry<N>::kBlocks - 1) / Geometry<N>::kBlocks;
+  const int grid = steps < sms * per_sm ? steps : sms * per_sm;
+  transform2d_kernel<N><<<grid, kThreads, 0, stream>>>(x, ck, rk, out, batch, shift1, shift2);
   return cudaGetLastError();
 }
 
+__global__ void empty_kernel() {}
+
 }  // namespace
 
-// C interface for ctypes. x, out: (batch, n, n) int32, contiguous, on the
-// current device; ck, rk: (n, n) int32. Returns a cudaError_t (0 = launched).
+// C interface for ctypes. x, out: (batch, n, n) int32, contiguous and
+// 16-byte aligned, on the current device; ck, rk: (n, n) int32. Returns a
+// cudaError_t (0 = launched).
 extern "C" int avt_transform2d(const void* x, const void* ck, const void* rk, void* out,
                                int batch, int n, int shift1, int shift2, void* stream) {
   if (batch <= 0) return 0;
   if (shift1 < 0 || shift1 > 31 || shift2 < 0 || shift2 > 31) return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
   const auto* xi = static_cast<const int32_t*>(x);
   const auto* cki = static_cast<const int32_t*>(ck);
   const auto* rki = static_cast<const int32_t*>(rk);
@@ -100,4 +176,11 @@ extern "C" int avt_transform2d(const void* x, const void* ck, const void* rk, vo
     case 32: return (int)launch<32>(xi, cki, rki, o, batch, shift1, shift2, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// One launch of an empty kernel on the stream, through the same ctypes
+// path: the launch floor that K1's bound leaves out.
+extern "C" int avt_empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
 }

@@ -110,6 +110,8 @@ def load() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p,
         ]
+        lib.avt_empty_launch.restype = ctypes.c_int
+        lib.avt_empty_launch.argtypes = [ctypes.c_void_p]
         lib.avt_encode_wavefront.restype = ctypes.c_int
         lib.avt_encode_wavefront.argtypes = [ctypes.c_void_p] * 9
         lib.avt_encode_wavefront_capacity.restype = ctypes.c_int

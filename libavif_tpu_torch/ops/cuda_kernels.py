@@ -6,10 +6,13 @@ K1, ``transform_2d``: the batched 2-D fixed-point integer transform,
 ``round2(ck @ x[b], shift1)`` then ``round2(t[b] @ rkᵀ, shift2)`` in
 int32 with wraparound. Source: ``libavif_tpu_torch/csrc/transform2d.cu``.
 It replaces ``libavif_tpu/ops/pallas_kernels.py:_mm_round2`` and
-``transform_2d``. A launch of 1536 blocks of 16 x 16 (a 768x512 luma
-plane) moves about 3 MB, so launch latency bounds it; the kernel keeps
-both passes in one launch, with the intermediate in shared memory (see
-the source for the design). The codec's main path launches it no more:
+``transform_2d``. Both passes run in one launch, the intermediate in
+shared memory; each thread computes 4 x 4 tiles, and CTAs as many as fit
+on the card walk the batch, each loading the bases once (see the source
+for the design). A launch of 1536 blocks of 16 x 16 (a 768x512 luma
+plane) moves about 3 MB, so launch latency bounds it; at a 4032x3024
+plane the bytes do (n <= 16) or the multiply-adds (n = 32). The codec's
+main path launches it no more:
 its integer core (``csrc/transform.cuh``) runs inside K2 on encode and
 inside K3 on decode (``ops/wavefront.py``), for each block's own
 transform type. It serves ``ops.transforms`` on CUDA tensors.
@@ -85,6 +88,8 @@ def transform_2d(blocks, col_k, row_k, shift1: int, shift2: int) -> torch.Tensor
         return transform_2d_reference(blocks, col_k, row_k, shift1, shift2)
     if blocks.device.type != "cuda":
         raise ValueError(f"transform_2d runs on cuda or cpu, not {blocks.device}")
+    if blocks.data_ptr() % 16:
+        blocks = blocks.clone()  # the kernel moves 16 bytes a thread; a fresh tensor is aligned
     out = torch.empty_like(blocks)
     batch = blocks.shape[0]
     if batch == 0:

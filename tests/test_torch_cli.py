@@ -20,6 +20,7 @@ from libavif_tpu.constants import PixelFormat
 from libavif_tpu.io_formats.y4m import write_y4m
 from libavif_tpu_torch.codec.av1 import rdsearch_device as rdd
 from test_gainmaputil_cli import make_pair
+from test_torch_device import cpu_by_default  # noqa: F401 (autouse: the tools' main takes no device)
 from test_torch_encoder import make_image
 
 _PACKAGES = ("libavif_tpu", "libavif_tpu_torch")

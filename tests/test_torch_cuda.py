@@ -60,6 +60,40 @@ def test_k1_matches_plain_version(cuda, inverse):
         assert torch.equal(got, cuda_kernels.transform_2d_reference(x, ck, rk, s1, s2))
 
 
+def _plane_blocks(w, h, n):
+    return -(-w // n) * -(-h // n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4, 8, 16, 32])
+@pytest.mark.parametrize("batch", ["one", "odd", "768x512", "4032x3024"])
+def test_k1_batch_sizes_match_plain_version(cuda, n, batch):
+    # one block; 131 blocks, a multiple of no CTA's step (128 / (n/4)^2 blocks); the
+    # blocks of a 768x512 and of a 4032x3024 plane, more steps than the CTAs resident
+    b = {"one": 1, "odd": 131, "768x512": _plane_blocks(768, 512, n),
+         "4032x3024": _plane_blocks(4032, 3024, n)}[batch]
+    x = torch.from_numpy(_inputs(b + n, n, b)).to(cuda)
+    for tx in (0, 1, 2, 3, 4) if n <= 16 else (0, 4):
+        for inverse in (False, True):
+            ck, rk = cuda_kernels._bases(tx, n, inverse, str(cuda))
+            s1, s2 = (tables.COS_BIT, tables.COS_BIT + 3) if inverse else (10, 11)
+            got = cuda_kernels.transform_2d(x, ck, rk, s1, s2)
+            torch.cuda.synchronize()
+            assert torch.equal(got, cuda_kernels.transform_2d_reference(x, ck, rk, s1, s2)), (tx, inverse)
+
+
+@pytest.mark.cuda
+def test_k1_takes_a_misaligned_input(cuda):
+    # a contiguous view 4 bytes into its storage: the wrapper copies it to a 16-byte boundary
+    n, b = 16, 37
+    flat = torch.from_numpy(_inputs(5, n, b).reshape(-1)).to(cuda)
+    x = torch.cat([flat[:1], flat])[1:].view(b, n, n)
+    assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    ck, rk = cuda_kernels._bases(0, n, True, str(cuda))
+    got = cuda_kernels.transform_2d(x, ck, rk, tables.COS_BIT, tables.COS_BIT + 3)
+    assert torch.equal(got, cuda_kernels.transform_2d_reference(x, ck, rk, tables.COS_BIT, tables.COS_BIT + 3))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("depth,lossless,speed,n", [(8, False, 6, 16), (10, False, 0, 8), (12, True, 6, 8)])
 def test_encode_and_decode_plane_on_card_equal_cpu(cuda, depth, lossless, speed, n):

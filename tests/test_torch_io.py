@@ -24,6 +24,7 @@ from libavif_tpu_torch.hdr import gainmap as tgm
 from libavif_tpu_torch.pixels import reformat as treformat
 from test_gainmap import make_sdr_hdr_pair
 from test_torch_classes import to_port
+from test_torch_device import cpu_by_default  # noqa: F401 (autouse: read_image takes no device)
 from test_torch_reformat import assert_close_planes
 
 

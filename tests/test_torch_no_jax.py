@@ -53,6 +53,8 @@ builtins.__import__ = _recording_import
 
 _SCRIPT = _BLOCKING + r"""
 import numpy as np
+import torch
+torch.set_default_device("cpu")  # the port takes the CPU only when asked (read_image and the tools name no device)
 import libavif_tpu_torch
 from libavif_tpu_torch.api import decode, encode_batch
 from libavif_tpu_torch.codec.av1 import rdsearch_device
