@@ -18,14 +18,14 @@ Phases, each printed as it runs; any failure ends the run non-zero:
      RuntimeError on stderr and writes nothing;
   3. K1 on the card against its plain PyTorch version, every transform
      type and size, forward and inverse, with inputs that wrap int32;
-     both timed at a 768x512 luma plane's shape (1536 blocks of 16x16,
-     inverse; K1's decode launch before K3 took it in), the kernel also
-     device-only from torch.profiler; then K1 at every n, forward and
-     inverse (DCT), with B the blocks of a 768x512 and of a 4032x3024
-     plane, each launch equal to the plain version (torch.equal), timed
-     device-only (device_ms) and by CUDA event pairs, with the plain
-     version's time, the bound and the launch floor (an empty kernel
-     launched through the same ctypes path, timed by event pairs);
+     then K1 at every n, forward and inverse (DCT), with B the blocks of
+     a 768x512 and of a 4032x3024 plane, each launch equal to the plain
+     version (torch.equal), timed device-only (device_ms), by CUDA event
+     pairs and as a call, with the plain version's time, the bound and
+     the launch floor (an empty kernel launched through the same ctypes
+     path, timed device-only as K1 is); the kernels line takes K1's
+     numbers from the 768x512 plane's inverse row at n = 16 (1536
+     blocks, K1's decode launch before K3 took it in);
  3b. K2, the encode wavefront (one persistent launch per plane group),
      on the card against the plain per-diagonal loop (torch.equal) for n
      in {4, 8, 16, 32}, depths 8/10/12, speeds 0/3/6/9 and lossless, a
@@ -193,6 +193,7 @@ from bench_torch import (  # the bench's frames, constants and timing code, one 
 )
 
 K1_SHAPE = (1536, 16)  # (blocks, n) of a 768x512 luma plane, K1's decode launch before K3
+K1_ITERS = 50  # launches behind each of K1's times and the launch floor
 # Peak rates of one H100 SXM at 700 W: HBM bytes/s (NVIDIA's data sheet)
 # and int32 multiply-adds/s of the CUDA cores (132 SMs x 64 INT32 lanes x
 # 1.98 GHz boost clock), for the kernels' bounds.
@@ -301,29 +302,30 @@ def k1_bound_ms(b: int, n: int) -> tuple:
     return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
 
 
-def empty_launch_ms(lib, iters: int = 200) -> float:
-    """Median device time of an empty kernel launched through the kernel
-    library's ctypes path (avt_empty_launch), from CUDA event pairs as
-    launch_ms takes them: the launch floor that a kernel's bound leaves
-    out."""
+def empty_launch_ms(lib) -> tuple:
+    """Device time of an empty kernel launched through the kernel
+    library's ctypes path (avt_empty_launch), taken as ``device_ms`` takes
+    K1's: the launch floor that a kernel's bound leaves out. Returns (ms,
+    where it comes from)."""
     stream = torch.cuda.current_stream().cuda_stream
 
     def launch():
         rc = lib.avt_empty_launch(stream)
         if rc != 0:
             raise RuntimeError(f"empty launch failed: CUDA error {rc}")
+        launch.launches += 1
 
-    pairs = launch_ms(launch, iters)
-    return pairs[len(pairs) // 2]
+    launch.launches = 0
+    return device_ms(launch, "empty_kernel", launch, K1_ITERS)
 
 
-def k1_table(cuda_kernels, tables, floor_ms, smi, iters: int = 50) -> list:
+def k1_table(cuda_kernels, tables, floor_ms, smi) -> list:
     """K1 at every n, forward and inverse (DCT), with B the n x n blocks
     of each plane of K1_PLANES (the bottom row padded to a block), on
     seeded inputs in [-2048, 2048): each launch held against the plain
     version (torch.equal), then timed device-only (device_ms), by CUDA
-    event pairs (median), and the plain version by CUDA events. One row
-    a shape, each printed beside its bound, the launch floor
+    event pairs (median), as a call and the plain version by CUDA events.
+    One row a shape, each printed beside its bound, the launch floor
     ``floor_ms`` (None when not measured) and the card."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows = []
@@ -343,20 +345,21 @@ def k1_table(cuda_kernels, tables, floor_ms, smi, iters: int = 50) -> list:
 
                 if not torch.equal(kernel(), plain()):
                     raise AssertionError(f"K1 differs from its plain version: {w}x{h} n={n} inverse={inverse} B={b}")
-                ms, source = device_ms(kernel, "transform2d_kernel", cuda_kernels.transform_2d, iters)
-                pairs = launch_ms(kernel, iters)
+                ms, source = device_ms(kernel, "transform2d_kernel", cuda_kernels.transform_2d, K1_ITERS)
+                pairs = launch_ms(kernel, K1_ITERS)
+                call_ms = time_ms(kernel, K1_ITERS)
                 plain_ms = time_ms(plain, 3)
                 bound, bound_by = k1_bound_ms(b, n)
                 row = {"plane": f"{w}x{h}", "n": n, "inverse": inverse, "blocks": b, "ms": ms,
-                       "ms_from": source, "event_pair_ms": pairs[len(pairs) // 2], "plain_ms": plain_ms,
-                       "bound_ms": bound, "bound_by": bound_by, "of_bound": bound / ms,
+                       "ms_from": source, "event_pair_ms": pairs[len(pairs) // 2], "call_ms": call_ms,
+                       "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by, "of_bound": bound / ms,
                        "launch_floor_ms": floor_ms}
                 rows.append(row)
                 floor = "not measured" if floor_ms is None else f"{floor_ms:.5f} ms"
                 print(f"[k1] {w}x{h} n={n} {'inverse' if inverse else 'forward'} B={b}: equal to the plain "
-                      f"version; kernel {ms:.5f} ms ({source}), event pairs {row['event_pair_ms']:.5f} ms, plain "
-                      f"{plain_ms:.5f} ms; bound {bound:.5f} ms ({bound_by}), {100 * bound / ms:.1f}% of it; "
-                      f"launch floor {floor}; on {smi}", flush=True)
+                      f"version; kernel {ms:.5f} ms ({source}), event pairs {row['event_pair_ms']:.5f} ms, call "
+                      f"{call_ms:.5f} ms, plain {plain_ms:.5f} ms; bound {bound:.5f} ms ({bound_by}), "
+                      f"{100 * bound / ms:.1f}% of it; launch floor {floor}; on {smi}", flush=True)
             del x
     return rows
 
@@ -1775,36 +1778,14 @@ def main() -> int:
 
     no_device_files = check_no_device(api, wavefront, cuda_kernels)
 
-    # 3. K1 against its plain version, at the decode path's shape
+    # 3. K1 against its plain version, then timed at every n for two planes
     max_err = check_k1(cuda_kernels, tables, dev)
-    b, n = K1_SHAPE
-    x = torch.from_numpy(
-        np.random.default_rng(1).integers(-2048, 2048, (b, n, n)).astype(np.int32)
-    ).to(dev)
-    ck, rk = cuda_kernels._bases(0, n, True, str(dev))
-    shifts = (tables.COS_BIT, tables.COS_BIT + 3)
-
-    def kernel():
-        cuda_kernels.transform_2d(x, ck, rk, *shifts)
-
-    def plain():
-        cuda_kernels.transform_2d_reference(x, ck, rk, *shifts)
-
-    p1 = time_ms(plain, 200)
-    k1 = time_ms(kernel, 200)
-    k2 = time_ms(kernel, 200)
-    p2 = time_ms(plain, 200)
-    k1_dev, k1_source = device_ms(kernel, "transform2d_kernel", cuda_kernels.transform_2d, 50)
-    k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
-    k1_bound, k1_bound_by = k1_bound_ms(b, n)
-    print(f"[k1] B={b} n={n} inverse DCT: kernel device {k1_dev:.5f} ms "
-          f"({k1_source}), call {k_ms:.5f} ms, plain {p_ms:.5f} ms (CUDA events, runs "
-          f"{k1:.5f}/{k2:.5f} vs {p1:.5f}/{p2:.5f}); bound {k1_bound:.5f} ms ({k1_bound_by}); on {smi}",
-          flush=True)
-    k1_floor = empty_launch_ms(_build.load())
-    print(f"[k1] launch floor: an empty kernel through the same ctypes path, {k1_floor:.5f} ms (median of "
-          f"CUDA event pairs around 200 launches); on {smi}", flush=True)
+    k1_floor, floor_source = empty_launch_ms(_build.load())
+    print(f"[k1] launch floor: an empty kernel through the same ctypes path, {k1_floor:.5f} ms ({floor_source}); "
+          f"on {smi}", flush=True)
     k1_rows = k1_table(cuda_kernels, tables, k1_floor, smi)
+    k1 = next(row for row in k1_rows
+              if (row["plane"], row["blocks"], row["n"], row["inverse"]) == (f"{W}x{H}", *K1_SHAPE, True))
 
     # 3b. K2 against its plain version
     step = check_step(wavefront, recon, tables, dev, smi)
@@ -2066,11 +2047,11 @@ def main() -> int:
             "replaces": "libavif_tpu/ops/pallas_kernels.py:84",
             "launches": dec_launches[3],  # phase 6: the 8 files decoded on the card (K1 runs inside K3)
             "max_abs_err": max_err,
-            "ms": k1_dev,
-            "call_ms": k_ms,
-            "plain_ms": p_ms,
-            "bound_ms": k1_bound,
-            "bound_by": k1_bound_by,
+            "ms": k1["ms"],  # the table's 768x512 inverse row at n = 16
+            "call_ms": k1["call_ms"],
+            "plain_ms": k1["plain_ms"],
+            "bound_ms": k1["bound_ms"],
+            "bound_by": k1["bound_by"],
             "library_ms": None,  # no PyTorch call: CUDA has no int32 matmul, and K1 rounds between passes
             "launch_floor_ms": k1_floor,
             "shapes": k1_rows,  # every n, both directions, 768x512 and 4032x3024 planes

@@ -2,20 +2,20 @@
 
 On the machine with the card, from the root of a checkout:
 
-    python3 tools/k1_times.py [--tree DIR] [--iters N]
+    python3 tools/k1_times.py [--tree DIR]
 
 Imports ``libavif_tpu_torch`` from DIR (default: this checkout), builds
 its kernels, and runs ``chip_smoke.k1_table`` (this checkout's) on its
 ``ops.cuda_kernels``: K1 at every n, forward and inverse, with B the
 blocks of a 768x512 and of a 4032x3024 plane, each launch held against
 the plain version (torch.equal), timed device-only and by CUDA event
-pairs, beside its bound. The launch floor is measured when the tree's
-library has ``avt_empty_launch``.
+pairs and as a call, beside its bound. The launch floor is not measured
+here: ``chip_smoke.py`` phase 3 measures it.
 
-Prints one JSON line: the tree, the card's name and power limit, the
-floor and the rows. To compare a parent with a change, unpack the parent
-into a directory that ``.gitignore`` lists and run parent, change,
-change, parent in one call.
+Prints one JSON line: the tree, the card's name and power limit and the
+rows. To compare a parent with a change, unpack the parent into a
+directory that ``.gitignore`` lists and run parent, change, change,
+parent in one call.
 """
 
 import argparse
@@ -30,7 +30,6 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=str(REPO))
-    ap.add_argument("--iters", type=int, default=50)
     args = ap.parse_args()
     sys.path.insert(0, str(pathlib.Path(args.tree).resolve()))
     sys.path.insert(1, str(REPO))
@@ -47,15 +46,11 @@ def main() -> int:
     from libavif_tpu_torch import tables
     from libavif_tpu_torch.ops import _build, cuda_kernels
 
-    lib = _build.load()
+    _build.load()
     smi = smoke.smi_line()
-    try:
-        floor = smoke.empty_launch_ms(lib)
-    except AttributeError:  # a tree from before the floor's entry point
-        floor = None
-    rows = smoke.k1_table(cuda_kernels, tables, floor, smi, args.iters)
+    rows = smoke.k1_table(cuda_kernels, tables, None, smi)
     print(json.dumps({"tree": str(pathlib.Path(libavif_tpu_torch.__file__).parents[1]), "card": smi,
-                      "launch_floor_ms": floor, "rows": rows}), flush=True)
+                      "rows": rows}), flush=True)
     return 0
 
 
