@@ -8,14 +8,16 @@ Phases, each printed as it runs; any failure ends the run non-zero:
      exits non-zero when no CUDA device is available;
   2. build: K1 (libavif_tpu_torch/csrc/transform2d.cu), K2
      (csrc/encode_wavefront.cu), K3 with K4's tiles behind it
-     (csrc/decode_wavefront.cu) and K4 alone (csrc/loop_filter.cu, its
-     tile in csrc/loop_filter.cuh) from the sources, one nvcc per source,
-     in parallel;
+     (csrc/decode_wavefront.cu), K4 alone (csrc/loop_filter.cu, its
+     tile in csrc/loop_filter.cuh) and the two reformat kernels
+     (csrc/reformat.cu) from the sources, one nvcc per source, in
+     parallel;
  2b. no device named: Encoder() takes the card; an encode_batch of the 8
      gradient frames with no device= launches K2 16 times (bytes equal
-     to phase 4's); a child process with CUDA_VISIBLE_DEVICES="" that
-     calls encode_batch with no device exits non-zero with the
-     RuntimeError on stderr and writes nothing;
+     to phase 4's); rgb_to_yuv_arrays with no device= runs on the card
+     with one kernel launch; child processes with CUDA_VISIBLE_DEVICES=""
+     that call encode_batch, and rgb_to_yuv_arrays, with no device exit
+     non-zero with the RuntimeError on stderr and write nothing;
   3. K1 on the card against its plain PyTorch version, every transform
      type and size, forward and inverse, with inputs that wrap int32;
      then K1 at every n, forward and inverse (DCT), with B the blocks of
@@ -97,17 +99,29 @@ Phases, each printed as it runs; any failure ends the run non-zero:
      size within 10% and Y-PSNR within 0.3 dB per frame;
  10. alpha: one frame with a non-opaque alpha plane, encoded on the
      card; the alpha item is written and read back;
- 11. reformat: RGB -> YUV -> RGB of a 4032x3024 photo-sized frame in five
-     configurations (8-bit BT.601 full 4:2:0, 10-bit BT.709 limited
-     4:2:0, 8-bit identity 4:4:4, 10-bit YCgCo-Re 4:4:4, 8-bit sharp-YUV
-     4:2:0), on the card and on the CPU, held to the tolerance of
-     tests/test_torch_reformat.py; each direction timed on the card with
-     CUDA events, whole call and device program alone, and on the CPU
-     with the host clock;
+ 11. reformat (csrc/reformat.cu, one launch each way): first a sweep,
+     each kernel against its plain version on the card (torch.equal) in
+     every configuration the wrappers accept (formats, depths 8/10/12,
+     RGB at 8 and 16 bits, both ranges, BT.601/709/2020 and YCgCo,
+     average and sharp downsampling, nearest and bilinear upsampling,
+     identity and YCgCo-Re/Ro) at 61x97, 1x1, 2x3, 64x96 and phase 12's
+     768x512; then RGB -> YUV -> RGB of phase 12's first frame at
+     768x512 in its configuration (8-bit BT.601 full 4:2:0), and of a
+     4032x3024 photo-sized frame in five configurations (8-bit BT.601
+     full 4:2:0, 10-bit BT.709 limited 4:2:0, 8-bit identity 4:4:4,
+     10-bit YCgCo-Re 4:4:4, 8-bit sharp-YUV 4:2:0): the kernels equal to
+     their plain versions on the card (torch.equal), the card held to
+     the CPU by the tolerance of tests/test_torch_reformat.py, the
+     lossless round trips exact; each direction timed: the kernel
+     device-only (device_ms) and as a call, the plain version on the
+     card, the port's upload (pinned staging) and fetch (pageable), the
+     numpy-in, numpy-out call (host clock), the CPU, against the bound;
+     the kernels line takes its times from the 768x512 row;
  12. RGB service path: 8 seeded 768x512 RGB PNGs and one RGBA PNG through
      io_formats.read_image(YUV420) -> encode_batch(quality=75, speed=6)
      -> decode -> io_formats.write_png, counting the reformat runs (9 and
-     9 on the card, none on the CPU) and checking RGB-PSNR > 30 dB per
+     9 on the card, none on the CPU) and the reformat kernels' launches
+     (9 and 9, one per run) and checking RGB-PSNR > 30 dB per
      image; wall time split into read+convert, encode, decode and
      convert+write, with the PNG decode and the YUV->RGB conversion
      timed alone after the counted run;
@@ -135,7 +149,8 @@ Phases, each printed as it runs; any failure ends the run non-zero:
      gain-map 'tmap' still;
  17. CLI: a subprocess runs python -m libavif_tpu_torch.cli.avifenc on a
      PNG, another avifdec back to PNG; RGB-PSNR > 30 dB, and the reformat
-     run counters of both processes show the card only;
+     run counters of both processes show the card only, one kernel launch
+     per run;
  18. multi-device (libavif_tpu_torch.parallel, utils.trace, entry):
      (a) phase 4's batch with set_default_codec_mesh(make_codec_mesh(1))
      over the card: K2 launches 2 for the 8 frames (luma P = 8, chroma
@@ -217,21 +232,32 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-# A child process that asks for an encode with no device named while it
-# sees no card; it writes the file named by its first argument.
+# A child process that calls an entry point (its second argument: an
+# encode, or an RGB -> YUV conversion) with no device named while it sees
+# no card; it writes the file named by its first argument.
 _NO_DEVICE_CHILD = """
 import pathlib, sys
+import numpy as np
 from bench_torch import QUALITY, SPEED, gradient_frames
 from libavif_tpu_torch import api
-files = api.encode_batch(gradient_frames(batch=1), quality=QUALITY, speed=SPEED, codec="native")
-pathlib.Path(sys.argv[1]).write_bytes(files[0])
-print(len(files[0]))
+from libavif_tpu_torch.constants import PixelFormat, Range
+from libavif_tpu_torch.pixels import reformat
+if sys.argv[2] == "encode_batch":
+    out = api.encode_batch(gradient_frames(batch=1), quality=QUALITY, speed=SPEED, codec="native")[0]
+else:
+    out = reformat.rgb_to_yuv_arrays(np.zeros((64, 96, 3), np.uint8), depth=8, rgb_depth=8,
+                                     yuv_format=PixelFormat.YUV420, yuv_range=Range.FULL,
+                                     matrix_coefficients=1)[0].tobytes()
+pathlib.Path(sys.argv[1]).write_bytes(out)
+print(len(out))
 """
 
 
-def check_no_device(api, wavefront, cuda_kernels) -> list:
+def check_no_device(api, wavefront, cuda_kernels, reformat) -> list:
     """Phase 2b: with no device named the port runs on the card, and in a
     process that sees no card it raises. Returns the batch's files."""
+    from libavif_tpu_torch.constants import PixelFormat, Range
+
     enc_device = api.Encoder().device
     if enc_device.type != "cuda":
         raise AssertionError(f"Encoder() with no device named took {enc_device}")
@@ -241,23 +267,35 @@ def check_no_device(api, wavefront, cuda_kernels) -> list:
     if launches != (BATCH * groups_per_frame(), 0):
         raise AssertionError(f"encode_batch with no device named: K2, K1 launches {launches}, expected "
                              f"{(BATCH * groups_per_frame(), 0)}")
+    reformat.rgb_to_yuv_arrays.runs.clear()
+    reformat._rgb_to_yuv.launches = 0
+    rgb = np.asarray(gradient_frames(batch=1)[0].yuv_planes[0])[..., None].repeat(3, -1)
+    planes = reformat.rgb_to_yuv_arrays(rgb, depth=8, rgb_depth=8, yuv_format=PixelFormat.YUV420,
+                                        yuv_range=Range.FULL, matrix_coefficients=1)
+    conversion = (dict(reformat.rgb_to_yuv_arrays.runs), reformat._rgb_to_yuv.launches)
+    if conversion != ({"cuda": 1}, 1) or planes[1].shape != ((H + 1) // 2, (W + 1) // 2):
+        raise AssertionError(f"rgb_to_yuv_arrays with no device named: runs, launches {conversion}")
     repo = pathlib.Path(__file__).resolve().parent
-    with tempfile.TemporaryDirectory() as tmp:
-        out = pathlib.Path(tmp) / "out.avif"
-        proc = subprocess.run(
-            [sys.executable, "-c", _NO_DEVICE_CHILD, str(out)], cwd=repo,
-            env={**os.environ, "PYTHONPATH": str(repo), "CUDA_VISIBLE_DEVICES": ""},
-            capture_output=True, text=True, timeout=300,
-        )
-        wrote = out.exists()
-    if proc.returncode == 0 or "RuntimeError" not in proc.stderr or "no CUDA device" not in proc.stderr \
-            or wrote or proc.stdout:
-        raise AssertionError(f"encode_batch with no card and no device named: exit {proc.returncode}, file "
-                             f"written {wrote}, stdout {proc.stdout[-500:]!r}, stderr {proc.stderr[-2000:]!r}")
-    error = [line for line in proc.stderr.splitlines() if line.startswith("RuntimeError")][-1]
+    errors = []
+    for entry in ("encode_batch", "rgb_to_yuv_arrays"):
+        with tempfile.TemporaryDirectory() as tmp:
+            out = pathlib.Path(tmp) / "out"
+            proc = subprocess.run(
+                [sys.executable, "-c", _NO_DEVICE_CHILD, str(out), entry], cwd=repo,
+                env={**os.environ, "PYTHONPATH": str(repo), "CUDA_VISIBLE_DEVICES": ""},
+                capture_output=True, text=True, timeout=300,
+            )
+            wrote = out.exists()
+        if proc.returncode == 0 or "RuntimeError" not in proc.stderr or "no CUDA device" not in proc.stderr \
+                or wrote or proc.stdout:
+            raise AssertionError(f"{entry} with no card and no device named: exit {proc.returncode}, file "
+                                 f"written {wrote}, stdout {proc.stdout[-500:]!r}, stderr {proc.stderr[-2000:]!r}")
+        errors.append(f"{entry} exits {proc.returncode}, no file written, stderr: "
+                      + [line for line in proc.stderr.splitlines() if line.startswith("RuntimeError")][-1])
     print(f"[no-device] Encoder().device {enc_device}; encode_batch of {BATCH} frames with no device named: K2 "
-          f"launches {launches[0]}, K1 launches {launches[1]}; with CUDA_VISIBLE_DEVICES=\"\" the child exits "
-          f"{proc.returncode}, no file written, stderr: {error}", flush=True)
+          f"launches {launches[0]}, K1 launches {launches[1]}; rgb_to_yuv_arrays with no device named: runs "
+          f"{conversion[0]}, kernel launches {conversion[1]}; with CUDA_VISIBLE_DEVICES=\"\" "
+          + "; ".join(errors), flush=True)
     return files
 
 
@@ -1022,35 +1060,139 @@ def plane_diff(got: np.ndarray, want: np.ndarray, what: str) -> int:
     return off
 
 
+def wall_ms(fn, iters: int) -> float:
+    """Median host-clock ms of ``iters`` calls of fn, each ended by a
+    synchronize, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[iters // 2]
+
+
+def reformat_settings():
+    """Every float configuration the reformat wrappers accept at 8-bit RGB
+    (and 16-bit RGB at 10-bit YUV), then the integer ones:
+    (rgb_depth, settings without the chroma filter)."""
+    from libavif_tpu_torch.constants import MatrixCoefficients as MC
+    from libavif_tpu_torch.constants import PixelFormat, Range
+
+    for fmt in (PixelFormat.YUV444, PixelFormat.YUV422, PixelFormat.YUV420, PixelFormat.YUV400):
+        for depth, rgb_depth in ((8, 8), (10, 8), (10, 16), (12, 8)):
+            for yuv_range in (Range.FULL, Range.LIMITED):
+                for mc in (MC.BT601, MC.BT709, MC.BT2020_NCL, MC.YCGCO):
+                    yield rgb_depth, dict(depth=depth, rgb_depth=rgb_depth, yuv_format=fmt, yuv_range=yuv_range,
+                                          matrix_coefficients=mc, color_primaries=2)
+    for mc, rgb_depth, depth in ((MC.IDENTITY, 8, 8), (MC.IDENTITY, 8, 10), (MC.IDENTITY, 10, 8),
+                                 (MC.IDENTITY, 16, 12), (MC.YCGCO_RE, 8, 10), (MC.YCGCO_RE, 10, 12),
+                                 (MC.YCGCO_RO, 8, 9), (MC.YCGCO_RO, 10, 11)):
+        yield rgb_depth, dict(depth=depth, rgb_depth=rgb_depth, yuv_format=PixelFormat.YUV444,
+                              yuv_range=Range.FULL, matrix_coefficients=mc, color_primaries=2)
+
+
+def sample_err(got, want, what: str) -> int:
+    """Max |got - want| of two sample tensors as carried (0 for two None);
+    raises unless they are equal (torch.equal)."""
+    if (got is None) != (want is None):
+        raise AssertionError(f"{what}: a plane is missing")
+    if got is None:
+        return 0
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{what}: {tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} {want.dtype}")
+    diff = (got.to(torch.int32) & 0xFFFF) - (want.to(torch.int32) & 0xFFFF)
+    err = int(diff.abs().max()) if diff.numel() else 0
+    if err or not torch.equal(got, want):
+        raise AssertionError(f"{what}: kernel vs plain version max|diff| {err}, "
+                             f"{int((diff != 0).sum())} of {diff.numel()} samples differ")
+    return err
+
+
+def reformat_sweep(reformat, dev) -> int:
+    """Phase 11's sweep: each kernel against its plain version on the card
+    (torch.equal) at small sizes, odd ones among them, in every
+    configuration of ``reformat_settings``: average and sharp
+    downsampling, nearest and bilinear upsampling, random planes and the
+    ones the forward conversion made. Returns the count of cases."""
+    from libavif_tpu_torch.constants import ChromaUpsampling
+
+    cases = 0
+    rng = np.random.default_rng(1111)
+    for h, w in ((61, 97), (1, 1), (2, 3), (64, 96), (H, W)):
+        for rgb_depth, settings in reformat_settings():
+            rgb = reformat._to_device([rng.integers(0, 1 << rgb_depth, (h, w, 3)).astype(
+                np.uint8 if rgb_depth == 8 else np.uint16)], dev)[0]
+            made = None
+            for sharp in (False, True):
+                got = reformat._rgb_to_yuv(rgb, sharp_yuv=sharp, **settings)
+                want = reformat._rgb_to_yuv_reference(rgb, sharp_yuv=sharp, **settings)
+                for k, (g, wnt) in enumerate(zip(got, want)):
+                    sample_err(g, wnt, f"rgb->yuv {h}x{w} {settings} sharp {sharp} plane {k}")
+                made = made or got
+                cases += 1
+            dtype = np.uint8 if settings["depth"] == 8 else np.uint16
+            random = reformat._to_device([None if p is None else rng.integers(
+                0, 1 << settings["depth"], tuple(p.shape)).astype(dtype) for p in made], dev)
+            for planes in (made, random):
+                for up in (ChromaUpsampling.AUTOMATIC, ChromaUpsampling.NEAREST):
+                    inv = dict(settings, chroma_upsampling=up)
+                    sample_err(reformat._yuv_to_rgb(*planes, **inv), reformat._yuv_to_rgb_reference(*planes, **inv),
+                               f"yuv->rgb {h}x{w} {inv}")
+                    cases += 1
+    torch.cuda.synchronize()
+    return cases
+
+
+REFORMAT_ITERS = 20  # launches behind each reformat time
+
+
 def check_reformat(reformat, dev, smi):
-    """Phase 11: each configuration on the card and on the CPU at 12.2 MP."""
+    """Phase 11: the sweep, then phase 12's frame and configuration at
+    768x512 and each configuration at 12.2 MP, on the card and on the CPU,
+    the kernels against their plain versions, timed. Returns a row per
+    frame and configuration, phase 12's first."""
     from libavif_tpu_torch.constants import ChromaUpsampling
     from libavif_tpu_torch.constants import MatrixCoefficients as MC
     from libavif_tpu_torch.constants import PixelFormat, Range
 
+    launches = reformat._rgb_to_yuv.launches, reformat._yuv_to_rgb.launches
+    t0 = time.perf_counter()
+    cases = reformat_sweep(reformat, dev)
+    print(f"[reformat] sweep: {cases} cases, each kernel launch equal to its plain version on the card "
+          f"(torch.equal), in {time.perf_counter() - t0:.1f} s; launches "
+          f"{reformat._rgb_to_yuv.launches - launches[0]} rgb->yuv, {reformat._yuv_to_rgb.launches - launches[1]} "
+          f"yuv->rgb", flush=True)
+
     yy, xx = np.mgrid[0:PHOTO_H, 0:PHOTO_W]
     noise = np.random.default_rng(11).integers(-24, 25, (PHOTO_H, PHOTO_W, 3))
     smooth = np.stack([xx * 255 // PHOTO_W, yy * 255 // PHOTO_H, (xx + yy) * 255 // (PHOTO_W + PHOTO_H)], -1)
-    rgb = np.clip(smooth + noise, 0, 255).astype(np.uint8)
+    photo = np.clip(smooth + noise, 0, 255).astype(np.uint8)
+    # phase 12's configuration: io_formats.read_image at YUV420 and the
+    # files it encodes, written back by io_formats.write_png
+    service = dict(depth=8, yuv_format=PixelFormat.YUV420, yuv_range=Range.FULL, matrix_coefficients=MC.BT601)
     configs = [
-        ("8-bit BT.601 full 4:2:0", dict(depth=8, yuv_format=PixelFormat.YUV420, yuv_range=Range.FULL,
-                                        matrix_coefficients=MC.BT601), False),
-        ("10-bit BT.709 limited 4:2:0", dict(depth=10, yuv_format=PixelFormat.YUV420, yuv_range=Range.LIMITED,
-                                            matrix_coefficients=MC.BT709), False),
-        ("8-bit identity 4:4:4", dict(depth=8, yuv_format=PixelFormat.YUV444, yuv_range=Range.FULL,
-                                     matrix_coefficients=MC.IDENTITY), False),
-        ("10-bit YCgCo-Re 4:4:4", dict(depth=10, yuv_format=PixelFormat.YUV444, yuv_range=Range.FULL,
-                                      matrix_coefficients=MC.YCGCO_RE), False),
-        ("8-bit sharp-YUV 4:2:0", dict(depth=8, yuv_format=PixelFormat.YUV420, yuv_range=Range.FULL,
-                                      matrix_coefficients=MC.BT601), True),
+        ("8-bit BT.601 full 4:2:0", service_rgb(0), service, False),
+        ("8-bit BT.601 full 4:2:0", photo, service, False),
+        ("10-bit BT.709 limited 4:2:0", photo, dict(depth=10, yuv_format=PixelFormat.YUV420,
+                                                    yuv_range=Range.LIMITED, matrix_coefficients=MC.BT709), False),
+        ("8-bit identity 4:4:4", photo, dict(depth=8, yuv_format=PixelFormat.YUV444, yuv_range=Range.FULL,
+                                             matrix_coefficients=MC.IDENTITY), False),
+        ("10-bit YCgCo-Re 4:4:4", photo, dict(depth=10, yuv_format=PixelFormat.YUV444, yuv_range=Range.FULL,
+                                              matrix_coefficients=MC.YCGCO_RE), False),
+        ("8-bit sharp-YUV 4:2:0", photo, service, True),
     ]
-    for name, kw, sharp in configs:
+    rows = []
+    for name, rgb, kw, sharp in configs:
         kw = dict(kw, rgb_depth=8)
+        h, w = rgb.shape[:2]
         t0 = time.perf_counter()
         host = reformat.rgb_to_yuv_arrays(rgb, sharp_yuv=sharp, device="cpu", **kw)
         cpu_fwd = (time.perf_counter() - t0) * 1e3
         card = reformat.rgb_to_yuv_arrays(rgb, sharp_yuv=sharp, device=dev, **kw)
-        off = [plane_diff(c, h, f"{name} rgb->yuv plane {i}") for i, (c, h) in enumerate(zip(card, host))]
+        off = [plane_diff(c, cpu, f"{name} rgb->yuv plane {i}") for i, (c, cpu) in enumerate(zip(card, host))]
         t0 = time.perf_counter()
         back_host = reformat.yuv_to_rgb_arrays(*host, device="cpu", **kw)
         cpu_inv = (time.perf_counter() - t0) * 1e3
@@ -1058,27 +1200,84 @@ def check_reformat(reformat, dev, smi):
         off.append(plane_diff(back_card, back_host, f"{name} yuv->rgb"))
         if kw["matrix_coefficients"] in (MC.IDENTITY, MC.YCGCO_RE) and not np.array_equal(back_card, rgb):
             raise AssertionError(f"{name}: the lossless round trip on the card is not exact")
-        fwd_ms = time_ms(lambda: reformat.rgb_to_yuv_arrays(rgb, sharp_yuv=sharp, device=dev, **kw), 5)
-        inv_ms = time_ms(lambda: reformat.yuv_to_rgb_arrays(*host, device=dev, **kw), 5)
-        # the device programs alone, on inputs already on the card
-        rgb_dev = reformat._to_device(rgb, dev)
-        planes_dev = [reformat._to_device(p, dev) for p in host]
-        prog_kw = dict(kw, color_primaries=2)
-        fwd_dev_ms = time_ms(lambda: reformat._rgb_to_yuv(rgb_dev, sharp_yuv=sharp, **prog_kw), 5)
-        inv_dev_ms = time_ms(lambda: reformat._yuv_to_rgb(
-            *planes_dev, chroma_upsampling=ChromaUpsampling.AUTOMATIC, **prog_kw), 5)
+        # the kernels against their plain versions, on inputs already on the card
+        fwd_kw = dict(kw, color_primaries=2, sharp_yuv=sharp)
+        inv_kw = dict(kw, color_primaries=2, chroma_upsampling=ChromaUpsampling.AUTOMATIC)
+        rgb_dev = reformat._to_device([rgb], dev)[0]
+        planes_dev = reformat._to_device(list(host), dev)
+        fwd_out = reformat._rgb_to_yuv(rgb_dev, **fwd_kw)
+        inv_out = reformat._yuv_to_rgb(*planes_dev, **inv_kw)
+        err = max(sample_err(g, want, f"{name} rgb->yuv plane {k}")
+                  for k, (g, want) in enumerate(zip(fwd_out, reformat._rgb_to_yuv_reference(rgb_dev, **fwd_kw))))
+        err = max(err, sample_err(inv_out, reformat._yuv_to_rgb_reference(*planes_dev, **inv_kw), f"{name} yuv->rgb"))
         # bound: the RGB samples and the YUV planes at their sample widths,
         # each read or written once, over HBM; the 3x3 matrix's 18 flops per
         # pixel at the fp32 rate take a tenth of that
         bound = (rgb.nbytes + sum(p.nbytes for p in host)) / HBM_BYTES_PER_S * 1e3
-        ops = 18 * PHOTO_W * PHOTO_H / FP32_FLOP_PER_S * 1e3
+        ops = 18 * h * w / FP32_FLOP_PER_S * 1e3
         bound_by = "bytes" if bound >= ops else "operations"
         bound = max(bound, ops)
-        print(f"[reformat] {name} {PHOTO_W}x{PHOTO_H}: card vs CPU samples off by one {off} "
-              f"(Y, U, V, RGB); rgb->yuv card {fwd_ms:.3f} ms (program alone {fwd_dev_ms:.3f} ms), "
-              f"CPU {cpu_fwd:.3f} ms; yuv->rgb card {inv_ms:.3f} ms (program alone {inv_dev_ms:.3f} ms), "
-              f"CPU {cpu_inv:.3f} ms; bound {bound:.5f} ms each way ({bound_by}); CUDA events over 5 "
-              f"calls on {smi}", flush=True)
+        row = {"config": name, "shape": f"{w}x{h}", "bound_ms": bound, "bound_by": bound_by, "max_abs_err": err,
+               "cpu_ms": {"rgb_to_yuv": cpu_fwd, "yuv_to_rgb": cpu_inv}, "off_by_one": off}
+        for way, fn, plain, counter, key, inputs, outputs, call in (
+                ("rgb_to_yuv", lambda: reformat._rgb_to_yuv(rgb_dev, **fwd_kw),
+                 lambda: reformat._rgb_to_yuv_reference(rgb_dev, **fwd_kw), reformat._rgb_to_yuv, "rgb_to_yuv_",
+                 [rgb], list(fwd_out), lambda: reformat.rgb_to_yuv_arrays(rgb, sharp_yuv=sharp, device=dev, **kw)),
+                ("yuv_to_rgb", lambda: reformat._yuv_to_rgb(*planes_dev, **inv_kw),
+                 lambda: reformat._yuv_to_rgb_reference(*planes_dev, **inv_kw), reformat._yuv_to_rgb, "yuv_to_rgb_",
+                 list(host), [inv_out], lambda: reformat.yuv_to_rgb_arrays(*host, device=dev, **kw))):
+            ms, source = device_ms(fn, key, counter, REFORMAT_ITERS)
+            row[way] = {
+                "ms": ms, "ms_source": source, "call_ms": time_ms(fn, REFORMAT_ITERS), "plain_ms": time_ms(plain, 5),
+                # the port's copies: a pinned upload, a pageable fetch
+                "upload_ms": wall_ms(lambda: reformat._to_device(inputs, dev), 10),
+                "fetch_ms": wall_ms(lambda: reformat._to_host(outputs), 10),
+                "arrays_ms": wall_ms(call, 10),
+            }
+        rows.append(row)
+
+        def line(way):
+            r = row[way]
+            return (f"{way} kernel {r['ms']:.5f} ms ({r['ms_source']}), call {r['call_ms']:.5f} ms, plain "
+                    f"{r['plain_ms']:.5f} ms; upload {r['upload_ms']:.3f} ms, fetch {r['fetch_ms']:.3f} ms, the "
+                    f"arrays call {r['arrays_ms']:.3f} ms (host clock, median of 10), CPU "
+                    f"{row['cpu_ms'][way]:.3f} ms")
+
+        print(f"[reformat] {name} {w}x{h}: kernels equal to the plain versions (torch.equal); card "
+              f"vs CPU samples off by one {off} (Y, U, V, RGB); {line('rgb_to_yuv')}; {line('yuv_to_rgb')}; "
+              f"bound {bound:.5f} ms each way ({bound_by}), {100 * bound / row['rgb_to_yuv']['ms']:.1f}% / "
+              f"{100 * bound / row['yuv_to_rgb']['ms']:.1f}% of the kernels; on {smi}", flush=True)
+        del rgb_dev, planes_dev, fwd_out, inv_out
+    return rows
+
+
+def reformat_numbers(rows: list, way: str, launches: int) -> dict:
+    """The kernels line's entry of one reformat kernel: phase 12's launches,
+    phase 11's numbers of phase 12's frame and configuration (8-bit BT.601
+    full 4:2:0 at 768x512), every row under "shapes"."""
+    row = rows[0]
+    return {
+        "name": f"reformat_{way}",
+        "route": "cuda",
+        "source": "libavif_tpu_torch/csrc/reformat.cu",
+        "replaces": {"rgb_to_yuv": "libavif_tpu/pixels/reformat.py:220-283",
+                     "yuv_to_rgb": "libavif_tpu/pixels/reformat.py:156-219"}[way],
+        "launches": launches,  # phase 12: 9 PNGs through PNG -> AVIF -> PNG
+        "max_abs_err": max(r["max_abs_err"] for r in rows),  # phase 11, kernel vs plain on the card
+        "ms": row[way]["ms"],
+        "call_ms": row[way]["call_ms"],
+        "plain_ms": row[way]["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        # no single PyTorch call computes a range-scaled matrix conversion
+        # with chroma resampling and rounding
+        "library_ms": None,
+        "upload_ms": row[way]["upload_ms"],
+        "fetch_ms": row[way]["fetch_ms"],
+        "arrays_ms": row[way]["arrays_ms"],  # the numpy-in, numpy-out call
+        "shapes": [{"config": r["config"], "shape": r["shape"], "bound_ms": r["bound_ms"], **r[way]}
+                   for r in rows],
+    }
 
 
 def service_rgb(i: int) -> np.ndarray:
@@ -1091,7 +1290,8 @@ def service_rgb(i: int) -> np.ndarray:
 
 
 def check_rgb_service(io_formats, reformat, encode_batch, decode, smi):
-    """Phase 12: PNG -> AVIF -> PNG for 8 RGB frames and one RGBA frame."""
+    """Phase 12: PNG -> AVIF -> PNG for 8 RGB frames and one RGBA frame.
+    Returns the reformat kernels' launches (RGB -> YUV, YUV -> RGB)."""
     from PIL import Image as PILImage
 
     from libavif_tpu_torch.constants import PixelFormat
@@ -1108,6 +1308,7 @@ def check_rgb_service(io_formats, reformat, encode_batch, decode, smi):
         runs_fwd, runs_inv = reformat.rgb_to_yuv_arrays.runs, reformat.yuv_to_rgb_arrays.runs
         runs_fwd.clear()
         runs_inv.clear()
+        reformat._rgb_to_yuv.launches = reformat._yuv_to_rgb.launches = 0
         t0 = time.perf_counter()
         imgs = [io_formats.read_image(p, requested_format=PixelFormat.YUV420) for p in paths]
         t_read = time.perf_counter() - t0
@@ -1123,10 +1324,11 @@ def check_rgb_service(io_formats, reformat, encode_batch, decode, smi):
             io_formats.write_png(tmp / f"out{i}.png", img)
         t_write = time.perf_counter() - t0
         counts = (dict(runs_fwd), dict(runs_inv))
+        launches = (reformat._rgb_to_yuv.launches, reformat._yuv_to_rgb.launches)
         n = len(sources)
-        if counts != ({"cuda": n}, {"cuda": n}):
-            raise AssertionError(f"reformat runs rgb->yuv {counts[0]}, yuv->rgb {counts[1]}: "
-                                 f"expected {n} each on cuda and none on the CPU")
+        if counts != ({"cuda": n}, {"cuda": n}) or launches != (n, n):
+            raise AssertionError(f"reformat runs rgb->yuv {counts[0]}, yuv->rgb {counts[1]}, kernel launches "
+                                 f"{launches}: expected {n} each on cuda and none on the CPU")
         psnrs = []
         for i, px in enumerate(sources):
             out = np.asarray(PILImage.open(tmp / f"out{i}.png"))
@@ -1152,7 +1354,8 @@ def check_rgb_service(io_formats, reformat, encode_batch, decode, smi):
           f"{mp / total:.4f} MP/s; read+convert {t_read:.3f} s (PNG decode alone {t_png_read:.3f} s), "
           f"encode {t_enc:.3f} s, decode {t_dec:.3f} s, convert+write {t_write:.3f} s (YUV->RGB alone "
           f"{t_to_rgb:.3f} s); reformat runs on cuda {counts[0]['cuda']} + {counts[1]['cuda']}, none on "
-          f"the CPU; RGB-PSNR min {min(psnrs):.4f} dB, {sum(map(len, files))} bytes; on {smi}", flush=True)
+          f"the CPU, kernel launches {launches[0]} + {launches[1]}; RGB-PSNR min {min(psnrs):.4f} dB, {sum(map(len, files))} bytes; on {smi}", flush=True)
+    return launches
 
 
 def groups_per_frame() -> int:
@@ -1436,7 +1639,8 @@ def check_still_variants(api, frames, dev, smi):
 
 
 # Runs one CLI module as ``python -m`` does, then writes the reformat run
-# counters of the process to the file named by the first argument.
+# counters and kernel launches of the process to the file named by the
+# first argument.
 _CLI_PRELUDE = """
 import atexit, json, runpy, sys
 out, module = sys.argv[1], sys.argv[2]
@@ -1445,7 +1649,8 @@ sys.argv = [module] + sys.argv[3:]
 def _counts():
     from libavif_tpu_torch.pixels import reformat
     with open(out, "w") as f:
-        json.dump([dict(reformat.rgb_to_yuv_arrays.runs), dict(reformat.yuv_to_rgb_arrays.runs)], f)
+        json.dump([dict(reformat.rgb_to_yuv_arrays.runs), dict(reformat.yuv_to_rgb_arrays.runs),
+                   reformat._rgb_to_yuv.launches, reformat._yuv_to_rgb.launches], f)
 
 atexit.register(_counts)
 runpy.run_module(module, run_name="__main__", alter_sys=True)
@@ -1478,11 +1683,12 @@ def check_cli(smi):
         out = np.asarray(PILImage.open(tmp / "out.png"))
         rgb_psnr = psnr(out, src)
         size = (tmp / "out.avif").stat().st_size
-    if counts != [[{"cuda": 1}, {}], [{}, {"cuda": 1}]] or not rgb_psnr > 30:
-        raise AssertionError(f"CLI: reformat runs {counts}, RGB-PSNR {rgb_psnr:.2f} dB")
+    if counts != [[{"cuda": 1}, {}, 1, 0], [{}, {"cuda": 1}, 0, 1]] or not rgb_psnr > 30:
+        raise AssertionError(f"CLI: reformat runs and kernel launches {counts}, RGB-PSNR {rgb_psnr:.2f} dB")
     print(f"[cli] python -m libavif_tpu_torch.cli.avifenc {W}x{H} PNG -> {size} bytes in {times[0]:.3f} s, "
           f"avifdec -> PNG in {times[1]:.3f} s (processes included); RGB-PSNR {rgb_psnr:.4f} dB; reformat "
-          f"runs {counts[0][0]} + {counts[1][1]}, none on the CPU; on {smi}", flush=True)
+          f"runs {counts[0][0]} + {counts[1][1]}, none on the CPU, kernel launches {counts[0][2]} + "
+          f"{counts[1][3]}; on {smi}", flush=True)
 
 
 def spread(runs: list) -> str:
@@ -1776,7 +1982,9 @@ def main() -> int:
     # 2b. with no device named the port takes the card, and raises where it finds none
     from libavif_tpu_torch import api
 
-    no_device_files = check_no_device(api, wavefront, cuda_kernels)
+    from libavif_tpu_torch.pixels import reformat
+
+    no_device_files = check_no_device(api, wavefront, cuda_kernels, reformat)
 
     # 3. K1 against its plain version, then timed at every n for two planes
     max_err = check_k1(cuda_kernels, tables, dev)
@@ -2011,10 +2219,10 @@ def main() -> int:
     from libavif_tpu_torch import io_formats
     from libavif_tpu_torch.pixels import reformat
 
-    check_reformat(reformat, dev, smi)
+    reformat_rows = check_reformat(reformat, dev, smi)
 
     # 12. the RGB service path
-    check_rgb_service(io_formats, reformat, encode_batch, decode, smi)
+    service_launches = check_rgb_service(io_formats, reformat, encode_batch, decode, smi)
 
     # 13-16. the Encoder and Decoder classes: animations, grids, still variants
     from libavif_tpu_torch import api
@@ -2131,6 +2339,8 @@ def main() -> int:
             # launches); the standalone kernel timed at those groups (luma P = 8, chroma P = 16)
             "batched": {"launches": batch_k4, "luma": k4["luma batched"], "chroma": k4["chroma batched"]},
         },
+        *(reformat_numbers(reformat_rows, way, launches)
+          for way, launches in zip(("rgb_to_yuv", "yuv_to_rgb"), service_launches)),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -122,6 +122,10 @@ def load() -> ctypes.CDLL:
         lib.avt_decode_wavefront_capacity.argtypes = [ctypes.c_int] * 4
         lib.avt_loop_filter.restype = ctypes.c_int
         lib.avt_loop_filter.argtypes = [ctypes.c_void_p] * 4
+        lib.avt_yuv_to_rgb.restype = ctypes.c_int
+        lib.avt_yuv_to_rgb.argtypes = [ctypes.c_void_p] * 6
+        lib.avt_rgb_to_yuv.restype = ctypes.c_int
+        lib.avt_rgb_to_yuv.argtypes = [ctypes.c_void_p] * 6
         _lib = lib
         return _lib
 

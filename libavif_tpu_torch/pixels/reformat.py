@@ -1,12 +1,15 @@
 """YUV <-> RGB conversion — the pixel pipeline as PyTorch on a device.
 
 Port of ``libavif_tpu/pixels/reformat.py``, which the JAX package runs as
-one jitted XLA program per (format, depth, range, matrix) configuration;
-it has no Pallas kernel, and this port writes none: every step is a plain
-PyTorch op on ``device`` (default ``default_device()``). A fused reformat
-kernel is later work (ROADMAP queue 2). Numpy goes in and numpy comes
-out, with the reference's signatures plus ``device=``. On a CUDA device
-the conversion runs on the card or raises; nothing falls back to the CPU.
+one jitted XLA program per (format, depth, range, matrix) configuration.
+Here each direction is one hand-written kernel (``csrc/reformat.cu``):
+``_rgb_to_yuv`` and ``_yuv_to_rgb`` launch it once per conversion on a
+CUDA tensor, and take their plain PyTorch versions (``_rgb_to_yuv_reference``,
+``_yuv_to_rgb_reference``) on a CPU tensor. Numpy goes in and numpy comes
+out, with the reference's signatures plus ``device=`` (default
+``default_device()``). On a CUDA device the conversion runs on the card or
+raises; nothing falls back to the CPU. Premultiply and unpremultiply stay
+plain PyTorch on the device.
 
 Numerics follow the reference's: limited/full range scaling, 2x2 chroma
 averaging for 4:2:0 (odd sizes padded by edge replication), bilinear
@@ -23,19 +26,24 @@ samples, so only the same rounding sequence gives the same codes there.
 Which product of a sum the compiler rounds first is not fixed by the
 program, so a sample can still land one code value away from the JAX
 package's (``tests/test_torch_reformat.py`` states the tolerance). The
-FMA is emulated in fp64, so the card and the CPU round the same way.
+FMA is emulated in fp64, in the plain versions and in the kernels alike,
+so the kernels equal the plain versions bit for bit.
 
-Samples cross the host boundary in their own width: uint8 as uint8,
-uint16 as its int16 bit pattern (torch has no uint16 arithmetic). On the
-device they are int32 or float32.
+Samples cross the host boundary, and leave the programs, in their own
+width: uint8 as uint8, uint16 as its int16 bit pattern (torch has no
+uint16 arithmetic). Uploads to a CUDA device go through pinned staging,
+fetches from pageable memory: the faster way each, on an H100
+(``chip_smoke.py`` phase 11 times both ways).
 
 ``rgb_to_yuv_arrays.runs`` and ``yuv_to_rgb_arrays.runs`` count the
-conversions by device type ("cuda", "cpu").
+conversions by device type ("cuda", "cpu"); ``_rgb_to_yuv.launches`` and
+``_yuv_to_rgb.launches`` count the kernel launches.
 """
 
 from __future__ import annotations
 
 import collections
+import ctypes
 from typing import Optional
 
 import numpy as np
@@ -54,30 +62,59 @@ from ..constants import (
     pixel_format_info,
     rgb_format_has_alpha,
 )
+from ..ops import _build
 from .colr import calc_yuv_coefficients
 
 # ------------------------------------------------------------ host boundary
 
+# The tensor dtype that carries each numpy sample dtype
+_CARRIERS = {np.dtype(np.uint8): torch.uint8, np.dtype(np.uint16): torch.int16}
 
-def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A numpy array onto ``device``; uint16 becomes int32."""
+
+def _host_tensor(a: np.ndarray) -> torch.Tensor:
+    """A numpy array as a CPU tensor, uint16 as its int16 bit pattern."""
     a = np.ascontiguousarray(a)
     if not a.flags.writeable:  # torch.from_numpy shares memory and wants it writable
         a = a.copy()
-    if a.dtype == np.uint16:
-        return torch.from_numpy(a.view(np.int16)).to(device).to(torch.int32) & 0xFFFF
-    return torch.from_numpy(a).to(device)
+    return torch.from_numpy(a.view(np.int16) if a.dtype == np.uint16 else a)
 
 
-def _to_host(t: torch.Tensor, dtype) -> np.ndarray:
-    """Integer-valued samples -> numpy ``dtype``, wrapping like numpy's
-    and XLA's casts; uint16 crosses as int16."""
-    dtype = np.dtype(dtype)
-    if dtype == np.uint16:
-        return t.to(torch.int32).to(torch.int16).cpu().numpy().view(np.uint16)
-    if dtype == np.uint8:
-        return t.to(torch.int32).to(torch.uint8).cpu().numpy()
-    return t.cpu().numpy().astype(dtype)
+def _to_device(arrays, device: torch.device) -> list:
+    """numpy arrays onto ``device`` at their own width (uint16 as int16);
+    None stays None. To a CUDA device each goes through a pinned staging
+    buffer from PyTorch's caching host allocator and a non-blocking copy on
+    the current stream."""
+    pinned = device.type == "cuda"
+    out = []
+    for a in arrays:
+        t = None if a is None else _host_tensor(a)
+        if t is not None:
+            if pinned:
+                t = torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
+            t = t.to(device, non_blocking=pinned)
+        out.append(t)
+    return out
+
+
+def _to_host(tensors) -> list:
+    """Sample tensors (uint8, or int16 holding uint16) -> numpy arrays,
+    copied into pageable memory; None stays None. Casts nothing."""
+    host = [None if t is None else t.cpu().numpy() for t in tensors]
+    return [a.view(np.uint16) if a is not None and a.dtype == np.int16 else a for a in host]
+
+
+def _widen(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """Samples as carried (int16 holding uint16) -> values the plain
+    versions compute on."""
+    if t is not None and t.dtype == torch.int16:
+        return t.to(torch.int32) & 0xFFFF
+    return t
+
+
+def _narrow(t: torch.Tensor, dtype) -> torch.Tensor:
+    """Integer-valued samples -> the carrier of numpy ``dtype`` (uint8, or
+    int16 for uint16), wrapping like numpy's and XLA's casts."""
+    return t.to(torch.int32).to(_CARRIERS[np.dtype(dtype)])
 
 
 def _sample_dtype(depth: int):
@@ -371,18 +408,18 @@ def _unpremultiply(rgb: torch.Tensor, alpha: torch.Tensor, max_value: int) -> to
 def premultiply_alpha(rgb: np.ndarray, alpha: np.ndarray, max_value: int, device=None) -> np.ndarray:
     """Reference: avifRGBImagePremultiplyAlpha (alpha.c:151)."""
     device = torch.device(device) if device is not None else default_device()
-    out = _premultiply(_to_device(rgb, device), _to_device(alpha, device), max_value)
-    return _to_host(out, rgb.dtype)
+    rgb_t, alpha_t = _to_device([rgb, alpha], device)
+    return _to_host([_narrow(_premultiply(_widen(rgb_t), _widen(alpha_t), max_value), rgb.dtype)])[0]
 
 
 def unpremultiply_alpha(rgb: np.ndarray, alpha: np.ndarray, max_value: int, device=None) -> np.ndarray:
     """Reference: avifRGBImageUnpremultiplyAlpha (alpha.c:338)."""
     device = torch.device(device) if device is not None else default_device()
-    out = _unpremultiply(_to_device(rgb, device), _to_device(alpha, device), max_value)
-    return _to_host(out, rgb.dtype)
+    rgb_t, alpha_t = _to_device([rgb, alpha], device)
+    return _to_host([_narrow(_unpremultiply(_widen(rgb_t), _widen(alpha_t), max_value), rgb.dtype)])[0]
 
 
-# ----------------------------------------------------------------- image API
+# ----------------------------------------------------------------- programs
 
 
 def _mc_mode(mc: int) -> str:
@@ -398,58 +435,272 @@ def _mc_mode(mc: int) -> str:
     return "matrix"
 
 
-def _yuv_to_rgb(y, u, v, *, depth, rgb_depth, yuv_format, yuv_range, matrix_coefficients,
-                color_primaries, chroma_upsampling) -> torch.Tensor:
-    """The YUV -> RGB device program on tensors: (H, W, 3) int32. ``u``
-    and ``v`` are None for monochrome."""
+# The kernels' Mode (csrc/reformat.cu)
+_MODE_CODES = {"matrix": 0, "ycgco": 1, "identity": 2, "ycgco_re": 3, "ycgco_ro": 3}
+_LIFTS = ("identity", "ycgco_re", "ycgco_ro")
+
+
+def _yuv_to_rgb_program(u, v, *, depth, rgb_depth, yuv_format, yuv_range, matrix_coefficients,
+                        color_primaries, chroma_upsampling) -> tuple[str, dict]:
+    """What the YUV -> RGB program computes: its mode and the settings of
+    its plain function (``mono`` when there is no chroma). Raises for a
+    layout the mode refuses."""
     mode = _mc_mode(matrix_coefficients)
     info = pixel_format_info(yuv_format)
     has_chroma = u is not None and v is not None and not info.monochrome
-    if mode in ("identity", "ycgco_re", "ycgco_ro"):
+    if mode in _LIFTS:
         if yuv_format != PixelFormat.YUV444 or not has_chroma:
             name = "identity" if mode == "identity" else "YCgCo-Re/Ro"
             raise AvifError(Result.REFORMAT_FAILED, f"{name} requires 4:4:4")
-        lift = _identity_yuv_to_rgb if mode == "identity" else _ycgco_lifted_yuv_to_rgb
-        return lift(y, u, v, depth=depth, rgb_depth=rgb_depth)
+        return mode, dict(depth=depth, rgb_depth=rgb_depth)
     kr, kg, kb = calc_yuv_coefficients(color_primaries, matrix_coefficients)
     bilinear = chroma_upsampling in (
         ChromaUpsampling.AUTOMATIC,
         ChromaUpsampling.BEST_QUALITY,
         ChromaUpsampling.BILINEAR,
     ) and bool(info.chroma_shift_x or info.chroma_shift_y)
-    return _yuv_to_rgb_float(
-        y, u if has_chroma else None, v if has_chroma else None,
-        depth=depth, rgb_depth=rgb_depth, yuv_range=int(yuv_range), mc_mode=mode,
-        kr=kr, kb=kb, sx=info.chroma_shift_x, sy=info.chroma_shift_y,
-        bilinear=bilinear, out_h=y.shape[0], out_w=y.shape[1],
-    )
+    return mode, dict(depth=depth, rgb_depth=rgb_depth, yuv_range=int(yuv_range), mc_mode=mode, kr=kr, kb=kb,
+                      sx=info.chroma_shift_x, sy=info.chroma_shift_y, bilinear=bilinear, mono=not has_chroma)
 
 
-def _rgb_to_yuv(rgb, *, depth, rgb_depth, yuv_format, yuv_range, matrix_coefficients,
-                color_primaries, sharp_yuv):
-    """The RGB -> YUV device program on a tensor: (y, u, v) int32 planes,
-    u and v None for monochrome."""
+def _rgb_to_yuv_program(*, depth, rgb_depth, yuv_format, yuv_range, matrix_coefficients, color_primaries,
+                        sharp_yuv) -> tuple[str, dict]:
+    """What the RGB -> YUV program computes: its mode and the settings of
+    its plain function. Raises for a layout or depth the mode refuses."""
     mode = _mc_mode(matrix_coefficients)
     info = pixel_format_info(yuv_format)
-    if mode in ("identity", "ycgco_re", "ycgco_ro"):
+    if mode in _LIFTS:
         if yuv_format != PixelFormat.YUV444:
             name = "identity" if mode == "identity" else "YCgCo-Re/Ro"
             raise AvifError(Result.REFORMAT_FAILED, f"{name} requires 4:4:4")
-        if mode == "identity":
-            return _identity_rgb_to_yuv(rgb, depth=depth, rgb_depth=rgb_depth)
         expected = rgb_depth + (2 if mode == "ycgco_re" else 1)
-        if depth != expected:
+        if mode != "identity" and depth != expected:
             raise AvifError(
                 Result.REFORMAT_FAILED,
                 f"YCgCo-{mode[-2:]} needs yuv depth {expected} for rgb depth {rgb_depth}",
             )
-        return _ycgco_lifted_rgb_to_yuv(rgb, depth=depth, rgb_depth=rgb_depth)
+        return mode, dict(depth=depth, rgb_depth=rgb_depth)
     kr, kg, kb = calc_yuv_coefficients(color_primaries, matrix_coefficients)
-    return _rgb_to_yuv_float(
-        rgb, depth=depth, rgb_depth=rgb_depth, yuv_range=int(yuv_range), mc_mode=mode,
-        kr=kr, kb=kb, sx=info.chroma_shift_x, sy=info.chroma_shift_y,
-        monochrome=info.monochrome, sharp_yuv=sharp_yuv,
-    )
+    return mode, dict(depth=depth, rgb_depth=rgb_depth, yuv_range=int(yuv_range), mc_mode=mode, kr=kr, kb=kb,
+                      sx=info.chroma_shift_x, sy=info.chroma_shift_y, monochrome=info.monochrome,
+                      sharp_yuv=sharp_yuv)
+
+
+def _yuv_to_rgb_reference(y, u, v, **settings) -> torch.Tensor:
+    """Plain version of the YUV -> RGB kernel, on any device: the planes as
+    carried (uint8, or int16 holding uint16) -> (H, W, 3) at the RGB sample
+    width. ``settings`` are ``_yuv_to_rgb``'s."""
+    mode, kw = _yuv_to_rgb_program(u, v, **settings)
+    y, u, v = _widen(y), _widen(u), _widen(v)
+    if mode == "identity":
+        out = _identity_yuv_to_rgb(y, u, v, **kw)
+    elif mode in _LIFTS:
+        out = _ycgco_lifted_yuv_to_rgb(y, u, v, **kw)
+    else:
+        mono = kw.pop("mono")
+        out = _yuv_to_rgb_float(y, None if mono else u, None if mono else v, out_h=y.shape[0],
+                                out_w=y.shape[1], **kw)
+    return _narrow(out, _sample_dtype(settings["rgb_depth"]))
+
+
+def _rgb_to_yuv_reference(rgb, **settings) -> tuple:
+    """Plain version of the RGB -> YUV kernel, on any device: (H, W, 3) as
+    carried -> (y, u, v) at the YUV sample width, u and v None for
+    monochrome. ``settings`` are ``_rgb_to_yuv``'s."""
+    mode, kw = _rgb_to_yuv_program(**settings)
+    rgb = _widen(rgb)
+    if mode == "identity":
+        out = _identity_rgb_to_yuv(rgb, **kw)
+    elif mode in _LIFTS:
+        out = _ycgco_lifted_rgb_to_yuv(rgb, **kw)
+    else:
+        out = _rgb_to_yuv_float(rgb, **kw)
+    dtype = _sample_dtype(settings["depth"])
+    return tuple(None if p is None else _narrow(p, dtype) for p in out)
+
+
+# ------------------------------------------------------------------ kernels
+
+
+class _YuvToRgbParams(ctypes.Structure):
+    """Mirror of ``YuvToRgbParams`` in ``csrc/reformat.cu``."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "h", "w", "ch", "cw", "mode", "sx", "sy", "bilinear", "mono", "in_bytes", "out_bytes", "shift", "offset",
+        "rgb_max")] + [(name, ctypes.c_double) for name in (
+            "y_bias", "uv_bias", "inv_y", "inv_uv", "cr_k", "cb_k", "g_cr", "g_cb", "g_k", "out_scale", "out_round",
+            "out_max")]
+
+
+class _RgbToYuvParams(ctypes.Structure):
+    """Mirror of ``RgbToYuvParams`` in ``csrc/reformat.cu``."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "h", "w", "ch", "cw", "mode", "sx", "sy", "sharp", "mono", "in_bytes", "out_bytes", "shift", "offset",
+        "unused")] + [(name, ctypes.c_double) for name in (
+            "inv", "kr", "kg", "kb", "half_g", "scale_u", "scale_v", "k3_u", "k3_v", "y_scale", "y_round",
+            "uv_scale_u", "uv_scale_v", "uv_round", "out_max")]
+
+
+def _yuv_to_rgb_params(y, u, mode: str, kw: dict) -> _YuvToRgbParams:
+    """The YUV -> RGB kernel's parameters: the plain version's constants,
+    as the doubles it uses."""
+    h, w = y.shape
+    prm = _YuvToRgbParams(h=h, w=w, mode=_MODE_CODES[mode], in_bytes=y.element_size(),
+                          out_bytes=1 if kw["rgb_depth"] <= 8 else 2)
+    if u is not None:
+        prm.ch, prm.cw = u.shape
+    if mode == "identity":
+        prm.shift = kw["rgb_depth"] - kw["depth"]
+    elif mode in _LIFTS:
+        prm.offset, prm.rgb_max = 1 << (kw["depth"] - 1), (1 << kw["rgb_depth"]) - 1
+    else:
+        prm.sx, prm.sy, prm.bilinear, prm.mono = kw["sx"], kw["sy"], kw["bilinear"], kw["mono"]
+        prm.y_bias, y_rng, prm.uv_bias, uv_rng = _range_params(kw["depth"], kw["yuv_range"])
+        prm.inv_y, prm.inv_uv = _recip(y_rng), _recip(uv_rng)
+        if mode == "matrix":
+            kr, kb = kw["kr"], kw["kb"]
+            prm.cr_k, prm.cb_k = _k(2.0 * (1.0 - kr), prm.inv_uv), _k(2.0 * (1.0 - kb), prm.inv_uv)
+            prm.g_cr, prm.g_cb = _k(kr * (1.0 - kr), prm.inv_uv), _k(kb * (1.0 - kb), prm.inv_uv)
+            prm.g_k = _k(2.0, _recip(1.0 - kr - kb))
+        prm.out_scale = prm.out_max = float((1 << kw["rgb_depth"]) - 1)
+        prm.out_round = 0.0 + 0.5
+    return prm
+
+
+def _rgb_to_yuv_params(rgb, mode: str, kw: dict) -> _RgbToYuvParams:
+    """The RGB -> YUV kernel's parameters: the plain version's constants,
+    as the doubles it uses."""
+    h, w, _ = rgb.shape
+    prm = _RgbToYuvParams(h=h, w=w, mode=_MODE_CODES[mode], in_bytes=rgb.element_size(),
+                          out_bytes=1 if kw["depth"] <= 8 else 2)
+    if mode in _LIFTS:
+        prm.ch, prm.cw = h, w
+        prm.shift, prm.offset = kw["depth"] - kw["rgb_depth"], 1 << (kw["depth"] - 1)
+        return prm
+    sx, sy = kw["sx"], kw["sy"]
+    prm.sx, prm.sy, prm.sharp, prm.mono = sx, sy, bool(kw["sharp_yuv"]), kw["monochrome"]
+    prm.ch, prm.cw = (h + sy) >> sy, (w + sx) >> sx
+    prm.inv = inv = _recip((1 << kw["rgb_depth"]) - 1)
+    if mode == "ycgco":
+        prm.half_g = _k(0.5, inv)
+        prm.scale_u, prm.scale_v = 1.0, 0.5
+    else:
+        kr, kb = kw["kr"], kw["kb"]
+        prm.kr, prm.kg, prm.kb = _k(kr, inv), _k(1.0 - kr - kb, inv), _k(kb, inv)
+        prm.scale_u, prm.scale_v = _recip(2.0 * (1.0 - kb)), _recip(2.0 * (1.0 - kr))
+    prm.k3_u, prm.k3_v = _k(3.0, prm.scale_u), _k(3.0, prm.scale_v)
+    y_bias, prm.y_scale, uv_bias, uv_rng = _range_params(kw["depth"], kw["yuv_range"])
+    prm.y_round, prm.uv_round = y_bias + 0.5, uv_bias + 0.5
+    # the downsampling filter's constant factor, folded into the range scale
+    if not (sx or sy):
+        factors = prm.scale_u, prm.scale_v
+    elif prm.sharp:
+        factors = 1.0, 1.0
+    else:
+        factors = (1.0 / (1 << (sx + sy)),) * 2
+    prm.uv_scale_u, prm.uv_scale_v = (_k(f, uv_rng) for f in factors)
+    prm.out_max = float((1 << kw["depth"]) - 1)
+    return prm
+
+
+def _check_samples(name: str, planes) -> None:
+    """Sample tensors as carried, on one device, contiguous."""
+    first = planes[0]
+    for t in planes:
+        if t.dtype not in (torch.uint8, torch.int16):
+            raise TypeError(f"{name} takes uint8 samples or uint16 as int16, got {t.dtype}")
+        if t.dtype != first.dtype:
+            raise TypeError(f"{name}: samples of one width, got {first.dtype} and {t.dtype}")
+        if t.device != first.device:
+            raise ValueError(f"{name}: samples on one device, got {first.device} and {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} takes contiguous samples")
+
+
+def _stream(t: torch.Tensor) -> int:
+    if t.device.type != "cuda":
+        raise ValueError(f"the reformat runs on cuda or cpu, not {t.device}")
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _yuv_to_rgb(y, u, v, *, depth, rgb_depth, yuv_format, yuv_range, matrix_coefficients,
+                color_primaries, chroma_upsampling) -> torch.Tensor:
+    """The YUV -> RGB device program on tensors: the planes as carried
+    (uint8, or int16 holding uint16; ``u`` and ``v`` None for monochrome)
+    -> (H, W, 3) at the RGB sample width. A CUDA tensor takes one launch of
+    ``csrc/reformat.cu`` on the current stream, counted in
+    ``_yuv_to_rgb.launches``; a CPU tensor the plain version."""
+    settings = dict(depth=depth, rgb_depth=rgb_depth, yuv_format=yuv_format, yuv_range=yuv_range,
+                    matrix_coefficients=matrix_coefficients, color_primaries=color_primaries,
+                    chroma_upsampling=chroma_upsampling)
+    mode, kw = _yuv_to_rgb_program(u, v, **settings)
+    chroma = mode in _LIFTS or not kw["mono"]
+    _check_samples("_yuv_to_rgb", [y, u, v] if chroma else [y])
+    if y.dim() != 2:
+        raise ValueError(f"_yuv_to_rgb takes (H, W) planes, got {tuple(y.shape)}")
+    if chroma:
+        need = y.shape if mode in _LIFTS else ((y.shape[0] + kw["sy"]) >> kw["sy"], (y.shape[1] + kw["sx"]) >> kw["sx"])
+        if u.shape != v.shape or u.dim() != 2 or u.shape[0] < need[0] or u.shape[1] < need[1] or (
+                mode in _LIFTS and u.shape != y.shape):
+            raise ValueError(f"_yuv_to_rgb: chroma planes {tuple(u.shape)}, {tuple(v.shape)} for "
+                             f"{tuple(y.shape)} luma")
+    if y.device.type == "cpu":
+        return _yuv_to_rgb_reference(y, u, v, **settings)
+    stream = _stream(y)
+    prm = _yuv_to_rgb_params(y, u if chroma else None, mode, kw)
+    out = torch.empty((*y.shape, 3), dtype=_CARRIERS[np.dtype(_sample_dtype(rgb_depth))], device=y.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.load()
+    with _build.on_device(y.device):
+        rc = lib.avt_yuv_to_rgb(ctypes.byref(prm), y.data_ptr(), u.data_ptr() if chroma else None,
+                                v.data_ptr() if chroma else None, out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"yuv_to_rgb launch failed: CUDA error {rc}")
+    _yuv_to_rgb.launches += 1
+    return out
+
+
+def _rgb_to_yuv(rgb, *, depth, rgb_depth, yuv_format, yuv_range, matrix_coefficients,
+                color_primaries, sharp_yuv) -> tuple:
+    """The RGB -> YUV device program on a tensor: (H, W, 3) as carried ->
+    (y, u, v) at the YUV sample width, u and v None for monochrome. A CUDA
+    tensor takes one launch of ``csrc/reformat.cu`` on the current stream,
+    counted in ``_rgb_to_yuv.launches``; a CPU tensor the plain version."""
+    settings = dict(depth=depth, rgb_depth=rgb_depth, yuv_format=yuv_format, yuv_range=yuv_range,
+                    matrix_coefficients=matrix_coefficients, color_primaries=color_primaries,
+                    sharp_yuv=sharp_yuv)
+    mode, kw = _rgb_to_yuv_program(**settings)
+    _check_samples("_rgb_to_yuv", [rgb])
+    if rgb.dim() != 3 or rgb.shape[2] != 3:
+        raise ValueError(f"_rgb_to_yuv takes (H, W, 3) samples, got {tuple(rgb.shape)}")
+    if rgb.device.type == "cpu":
+        return _rgb_to_yuv_reference(rgb, **settings)
+    stream = _stream(rgb)
+    prm = _rgb_to_yuv_params(rgb, mode, kw)
+    dtype = _CARRIERS[np.dtype(_sample_dtype(depth))]
+    y = torch.empty(rgb.shape[:2], dtype=dtype, device=rgb.device)
+    mono = mode not in _LIFTS and kw["monochrome"]
+    u, v = (None, None) if mono else (torch.empty((prm.ch, prm.cw), dtype=dtype, device=rgb.device)
+                                      for _ in range(2))
+    if y.numel() == 0:
+        return y, u, v
+    lib = _build.load()
+    with _build.on_device(rgb.device):
+        rc = lib.avt_rgb_to_yuv(ctypes.byref(prm), rgb.data_ptr(), y.data_ptr(), None if mono else u.data_ptr(),
+                                None if mono else v.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"rgb_to_yuv launch failed: CUDA error {rc}")
+    _rgb_to_yuv.launches += 1
+    return y, u, v
+
+
+_yuv_to_rgb.launches = 0
+_rgb_to_yuv.launches = 0
+
+
+# ----------------------------------------------------------------- arrays API
 
 
 def yuv_to_rgb_arrays(
@@ -470,13 +721,13 @@ def yuv_to_rgb_arrays(
     (reference: avifImageYUVToRGB, reformat.c:1649)."""
     device = torch.device(device) if device is not None else default_device()
     out = _yuv_to_rgb(
-        *(None if p is None else _to_device(p, device) for p in (y, u, v)),
+        *_to_device([y, u, v], device),
         depth=depth, rgb_depth=rgb_depth, yuv_format=yuv_format, yuv_range=yuv_range,
         matrix_coefficients=matrix_coefficients, color_primaries=color_primaries,
         chroma_upsampling=chroma_upsampling,
     )
     yuv_to_rgb_arrays.runs[device.type] += 1
-    return _to_host(out, _sample_dtype(rgb_depth))
+    return _to_host([out])[0]
 
 
 def rgb_to_yuv_arrays(
@@ -496,19 +747,21 @@ def rgb_to_yuv_arrays(
     avifImageRGBToYUVLibSharpYUV role, reformat_libsharpyuv.c)."""
     device = torch.device(device) if device is not None else default_device()
     out = _rgb_to_yuv(
-        _to_device(rgb, device),
+        *_to_device([rgb], device),
         depth=depth, rgb_depth=rgb_depth, yuv_format=yuv_format, yuv_range=yuv_range,
         matrix_coefficients=matrix_coefficients, color_primaries=color_primaries,
         sharp_yuv=sharp_yuv,
     )
     rgb_to_yuv_arrays.runs[device.type] += 1
-    dtype = _sample_dtype(depth)
-    return tuple(None if p is None else _to_host(p, dtype) for p in out)
+    return tuple(_to_host(out))
 
 
 # conversions by device type ("cuda", "cpu")
 yuv_to_rgb_arrays.runs = collections.Counter()
 rgb_to_yuv_arrays.runs = collections.Counter()
+
+
+# ----------------------------------------------------------------- image API
 
 
 def image_yuv_to_rgb(image, rgb, device=None) -> None:

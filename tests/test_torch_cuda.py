@@ -443,6 +443,120 @@ def test_reformat_on_card_matches_cpu(cuda, h, w, fmt, depth, rng_, mc, sharp):
         runs[0] + 1, runs[1] + 2)
 
 
+_KERNEL_FORMATS = [PixelFormat.YUV444, PixelFormat.YUV422, PixelFormat.YUV420, PixelFormat.YUV400]
+_LIFT_CASES = [(MatrixCoefficients.IDENTITY, 8, 8), (MatrixCoefficients.IDENTITY, 8, 10),
+               (MatrixCoefficients.IDENTITY, 10, 8), (MatrixCoefficients.IDENTITY, 16, 12),
+               (MatrixCoefficients.YCGCO_RE, 8, 10), (MatrixCoefficients.YCGCO_RE, 10, 12),
+               (MatrixCoefficients.YCGCO_RO, 8, 9), (MatrixCoefficients.YCGCO_RO, 10, 11)]
+
+
+def _kernel_vs_plain(cuda, h, w, **settings):
+    """Both kernels against their plain versions on the card (torch.equal),
+    one launch each: average and sharp downsampling, nearest and bilinear
+    upsampling, on the planes the kernel made and on random ones."""
+    rgb_depth = settings["rgb_depth"]
+    rng = np.random.default_rng(h * w + rgb_depth + settings["depth"])
+    dtype = np.uint8 if rgb_depth == 8 else np.uint16
+    rgb = reformat._to_device([rng.integers(0, 1 << rgb_depth, (h, w, 3)).astype(dtype)], cuda)[0]
+    made = None
+    for sharp in (False, True):
+        before = reformat._rgb_to_yuv.launches
+        got = reformat._rgb_to_yuv(rgb, sharp_yuv=sharp, **settings)
+        assert reformat._rgb_to_yuv.launches == before + 1
+        for g, want in zip(got, reformat._rgb_to_yuv_reference(rgb, sharp_yuv=sharp, **settings)):
+            assert (g is None and want is None) or torch.equal(g, want)
+        made = made or got
+    ydtype = np.uint8 if settings["depth"] == 8 else np.uint16
+    random = reformat._to_device([None if p is None else rng.integers(0, 1 << settings["depth"], tuple(p.shape))
+                                  .astype(ydtype) for p in made], cuda)
+    for planes in (made, random):
+        for up in (ChromaUpsampling.AUTOMATIC, ChromaUpsampling.NEAREST):
+            before = reformat._yuv_to_rgb.launches
+            got = reformat._yuv_to_rgb(*planes, chroma_upsampling=up, **settings)
+            assert reformat._yuv_to_rgb.launches == before + 1
+            assert torch.equal(got, reformat._yuv_to_rgb_reference(*planes, chroma_upsampling=up, **settings))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mc", [MatrixCoefficients.BT601, MatrixCoefficients.BT709, MatrixCoefficients.BT2020_NCL,
+                                MatrixCoefficients.YCGCO], ids=lambda m: m.name)
+@pytest.mark.parametrize("depth,rgb_depth", [(8, 8), (10, 8), (12, 8), (10, 16)])
+@pytest.mark.parametrize("fmt", _KERNEL_FORMATS, ids=lambda f: f.name)
+def test_reformat_kernels_equal_plain_versions(cuda, fmt, depth, rgb_depth, mc):
+    for rng_ in (Range.FULL, Range.LIMITED):
+        for h, w in ((61, 97), (1, 1), (2, 3), (512, 768)):
+            _kernel_vs_plain(cuda, h, w, depth=depth, rgb_depth=rgb_depth, yuv_format=fmt,
+                             yuv_range=rng_, matrix_coefficients=mc, color_primaries=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mc,rgb_depth,depth", _LIFT_CASES, ids=lambda x: str(int(x)))
+def test_reformat_lift_kernels_equal_plain_versions(cuda, mc, rgb_depth, depth):
+    for h, w in ((61, 97), (1, 1), (512, 768)):
+        _kernel_vs_plain(cuda, h, w, depth=depth, rgb_depth=rgb_depth, yuv_format=PixelFormat.YUV444,
+                         yuv_range=Range.FULL, matrix_coefficients=mc, color_primaries=2)
+
+
+_ARRAYS = dict(depth=8, rgb_depth=8, yuv_format=PixelFormat.YUV420, yuv_range=Range.FULL,
+               matrix_coefficients=MatrixCoefficients.BT601)
+
+
+@pytest.mark.cuda
+def test_reformat_arrays_launch_once_per_conversion(cuda):
+    """The numpy entry points (a pinned upload, a pageable fetch): one
+    kernel launch each, the CPU's arrays."""
+    rgb = np.random.default_rng(3).integers(0, 256, (61, 97, 3)).astype(np.uint8)
+    launches = reformat._rgb_to_yuv.launches, reformat._yuv_to_rgb.launches
+    planes = reformat.rgb_to_yuv_arrays(rgb, device=cuda, **_ARRAYS)
+    back = reformat.yuv_to_rgb_arrays(*planes, device=cuda, **_ARRAYS)
+    assert (reformat._rgb_to_yuv.launches, reformat._yuv_to_rgb.launches) == (launches[0] + 1, launches[1] + 1)
+    for got, want in zip((*planes, back), (*reformat.rgb_to_yuv_arrays(rgb, device="cpu", **_ARRAYS),
+                                           reformat.yuv_to_rgb_arrays(*planes, device="cpu", **_ARRAYS))):
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_reformat_kernels_refuse_non_contiguous_and_mixed_devices(cuda):
+    settings = dict(_ARRAYS, color_primaries=2)
+    rgb = torch.zeros((97, 61, 3), dtype=torch.uint8, device=cuda).transpose(0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        reformat._rgb_to_yuv(rgb, sharp_yuv=False, **settings)
+    y = torch.zeros((61, 97), dtype=torch.uint8, device=cuda)
+    u = torch.zeros((31, 49), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        reformat._yuv_to_rgb(y, u.t().contiguous().t(), u, chroma_upsampling=ChromaUpsampling.AUTOMATIC, **settings)
+    with pytest.raises(ValueError, match="on one device"):
+        reformat._yuv_to_rgb(y, u.cpu(), u, chroma_upsampling=ChromaUpsampling.AUTOMATIC, **settings)
+
+
+@pytest.mark.cuda
+def test_reformat_refused_launch_raises_without_fallback(cuda, monkeypatch):
+    """A configuration the kernel refuses (a chroma shift of 2) comes back
+    as a CUDA error and raises; nothing runs the plain version instead."""
+    settings = dict(_ARRAYS, color_primaries=2)
+    rgb = torch.zeros((61, 97, 3), dtype=torch.uint8, device=cuda)
+    for name in ("_rgb_to_yuv_params", "_yuv_to_rgb_params"):
+        original = getattr(reformat, name)
+
+        def refused(*args, _original=original):
+            prm = _original(*args)
+            prm.sx = 2
+            return prm
+
+        monkeypatch.setattr(reformat, name, refused)
+    for name in ("_rgb_to_yuv_reference", "_yuv_to_rgb_reference"):
+        monkeypatch.setattr(reformat, name, lambda *a, **k: pytest.fail("the plain version ran on the card"))
+    launches = reformat._rgb_to_yuv.launches, reformat._yuv_to_rgb.launches
+    with pytest.raises(RuntimeError, match="rgb_to_yuv launch failed: CUDA error"):
+        reformat._rgb_to_yuv(rgb, sharp_yuv=False, **settings)
+    y = torch.zeros((61, 97), dtype=torch.uint8, device=cuda)
+    u = torch.zeros((31, 49), dtype=torch.uint8, device=cuda)
+    with pytest.raises(RuntimeError, match="yuv_to_rgb launch failed: CUDA error"):
+        reformat._yuv_to_rgb(y, u, u, chroma_upsampling=ChromaUpsampling.AUTOMATIC, **settings)
+    assert (reformat._rgb_to_yuv.launches, reformat._yuv_to_rgb.launches) == launches
+
+
 @pytest.mark.cuda
 def test_png_path_converts_on_the_card(cuda, tmp_path):
     """``io_formats`` converts on default_device(), which is the card."""
