@@ -104,8 +104,12 @@ Phases, each printed as it runs; any failure ends the run non-zero:
      every configuration the wrappers accept (formats, depths 8/10/12,
      RGB at 8 and 16 bits, both ranges, BT.601/709/2020 and YCgCo,
      average and sharp downsampling, nearest and bilinear upsampling,
-     identity and YCgCo-Re/Ro) at 61x97, 1x1, 2x3, 64x96 and phase 12's
-     768x512; then RGB -> YUV -> RGB of phase 12's first frame at
+     identity and YCgCo-Re/Ro) at 61x97, 1x1, 2x3, 1x261, 261x1, 37x259
+     (widths of every row alignment), 64x96 and phase 12's 768x512; the
+     kernels on reformat_guard_cases, where each guarded FMA of
+     csrc/reformat.cu takes its fp64 form; the SASS conversions and fp64
+     operations a chroma site of the 8-bit 4:2:0 kernels (printed, and on
+     the 8-bit 4:2:0 rows); then RGB -> YUV -> RGB of phase 12's first frame at
      768x512 in its configuration (8-bit BT.601 full 4:2:0), and of a
      4032x3024 photo-sized frame in five configurations (8-bit BT.601
      full 4:2:0, 10-bit BT.709 limited 4:2:0, 8-bit identity 4:4:4,
@@ -1094,6 +1098,41 @@ def reformat_settings():
                               yuv_range=Range.FULL, matrix_coefficients=mc, color_primaries=2)
 
 
+def reformat_guard_cases() -> list:
+    """Planes on which the reformat kernels' guards fail (csrc/reformat.cu,
+    group (b)), so each guarded FMA takes its fp64 form: (guard, direction,
+    settings, numpy planes). tests/test_torch_reformat_kernel.py shows with
+    its model of the kernels' arithmetic that each guard fails on them.
+      - chroma sum, sharp tap: colored pixels beside black ones, whose
+        chroma differences are 0, so a running sum of 0 meets a nonzero
+        difference (the window fails and no certificate applies);
+      - chroma unorm (4:4:4, BT.601): (0, 0, B) and (0, G, G) for odd B, G,
+        whose chroma lands within an fp32 step of an integer;
+      - G: U = 211, V = 88 at 4:4:4, BT.601, where G's addend g g_k is
+        -8.4e-6, below the guard's 2^-16 (a near cancellation)."""
+    from libavif_tpu_torch.constants import ChromaUpsampling
+    from libavif_tpu_torch.constants import MatrixCoefficients as MC
+    from libavif_tpu_torch.constants import PixelFormat, Range
+
+    base = dict(depth=8, rgb_depth=8, yuv_range=Range.FULL, matrix_coefficients=MC.BT601, color_primaries=2)
+    checker = np.where((np.add.outer(np.arange(6), np.arange(10)) & 1)[..., None] == 1,
+                       np.array([200, 30, 30]), np.array([0, 0, 0])).astype(np.uint8)
+    odd = np.arange(1, 64, 2)
+    ties = np.concatenate([np.stack([0 * odd, 0 * odd, odd], -1), np.stack([0 * odd, odd, odd], -1)])
+    y = np.full((4, 6), 128, np.uint8)
+    u, v = y.copy(), y.copy()
+    u[1::2, ::2], v[1::2, ::2] = 211, 88
+    return [
+        ("chroma sum", "rgb_to_yuv", dict(base, yuv_format=PixelFormat.YUV420, sharp_yuv=False), [checker]),
+        ("chroma sum", "rgb_to_yuv", dict(base, yuv_format=PixelFormat.YUV422, sharp_yuv=False), [checker]),
+        ("sharp tap", "rgb_to_yuv", dict(base, yuv_format=PixelFormat.YUV420, sharp_yuv=True), [checker]),
+        ("chroma unorm", "rgb_to_yuv", dict(base, yuv_format=PixelFormat.YUV444, sharp_yuv=False),
+         [ties.reshape(8, 8, 3).astype(np.uint8)]),
+        ("G", "yuv_to_rgb", dict(base, yuv_format=PixelFormat.YUV444, chroma_upsampling=ChromaUpsampling.AUTOMATIC),
+         [y, u, v]),
+    ]
+
+
 def sample_err(got, want, what: str) -> int:
     """Max |got - want| of two sample tensors as carried (0 for two None);
     raises unless they are equal (torch.equal)."""
@@ -1111,6 +1150,46 @@ def sample_err(got, want, what: str) -> int:
     return err
 
 
+# The sweep's shapes (h, w): odd ones; one pixel; one row, one column and
+# widths that are no multiple of a kernel thread's 8 pixels nor of 16 bytes
+# (each row at another alignment); phase 12's frame.
+REFORMAT_SWEEP = ((61, 97), (1, 1), (2, 3), (1, 261), (261, 1), (37, 259), (64, 96), (H, W))
+
+
+def reformat_guard_check(reformat, dev) -> int:
+    """Phase 11: the kernels on ``reformat_guard_cases``, where each
+    guarded FMA takes its fp64 form, one launch each, equal to the plain
+    versions (torch.equal). Returns the count of cases."""
+    for name, way, settings, planes in reformat_guard_cases():
+        inputs = reformat._to_device(planes, dev)
+        kernel, plain = ((reformat._rgb_to_yuv, reformat._rgb_to_yuv_reference) if way == "rgb_to_yuv" else
+                         (reformat._yuv_to_rgb, reformat._yuv_to_rgb_reference))
+        before = kernel.launches
+        got, want = kernel(*inputs, **settings), plain(*inputs, **settings)
+        if kernel.launches != before + 1:
+            raise AssertionError(f"guard case {name}: {kernel.launches - before} launches")
+        for k, (g, wnt) in enumerate(zip(got if isinstance(got, tuple) else (got,),
+                                         want if isinstance(want, tuple) else (want,))):
+            sample_err(g, wnt, f"guard case {name} {way} plane {k}")
+    torch.cuda.synchronize()
+    return len(reformat_guard_cases())
+
+
+def reformat_sass() -> dict:
+    """The fp32 <-> fp64 and other conversion instructions and the fp64
+    arithmetic per chroma site in the SASS of the 8-bit BT.601 4:2:0
+    reformat kernels (tools/reformat_times.py reads them)."""
+    import importlib.util
+
+    from libavif_tpu_torch.ops import _build
+
+    spec = importlib.util.spec_from_file_location("reformat_times", pathlib.Path(__file__).parent / "tools" /
+                                                  "reformat_times.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool.sass_counts(_build._library_path(), str(pathlib.Path(_build._nvcc()).with_name("cuobjdump")))
+
+
 def reformat_sweep(reformat, dev) -> int:
     """Phase 11's sweep: each kernel against its plain version on the card
     (torch.equal) at small sizes, odd ones among them, in every
@@ -1121,7 +1200,7 @@ def reformat_sweep(reformat, dev) -> int:
 
     cases = 0
     rng = np.random.default_rng(1111)
-    for h, w in ((61, 97), (1, 1), (2, 3), (64, 96), (H, W)):
+    for h, w in REFORMAT_SWEEP:
         for rgb_depth, settings in reformat_settings():
             rgb = reformat._to_device([rng.integers(0, 1 << rgb_depth, (h, w, 3)).astype(
                 np.uint8 if rgb_depth == 8 else np.uint16)], dev)[0]
@@ -1165,6 +1244,14 @@ def check_reformat(reformat, dev, smi):
           f"(torch.equal), in {time.perf_counter() - t0:.1f} s; launches "
           f"{reformat._rgb_to_yuv.launches - launches[0]} rgb->yuv, {reformat._yuv_to_rgb.launches - launches[1]} "
           f"yuv->rgb", flush=True)
+    guarded = reformat_guard_check(reformat, dev)
+    print(f"[reformat] guards: {guarded} cases on which the guarded FMAs take their fp64 form, each kernel "
+          f"launch equal to its plain version (torch.equal)", flush=True)
+    sass = reformat_sass()
+    for kernel, c in sass.items():
+        print(f"[reformat] SASS of the 8-bit BT.601 4:2:0 {kernel} kernel, a chroma site: "
+              f"{c['conversions_a_site']:g} conversions, {c['f64_ops_a_site']:g} fp64 adds and multiplies "
+              f"({c['sites_a_thread']} sites a thread; {c})", flush=True)
 
     yy, xx = np.mgrid[0:PHOTO_H, 0:PHOTO_W]
     noise = np.random.default_rng(11).integers(-24, 25, (PHOTO_H, PHOTO_W, 3))
@@ -1234,6 +1321,10 @@ def check_reformat(reformat, dev, smi):
                 "fetch_ms": wall_ms(lambda: reformat._to_host(outputs), 10),
                 "arrays_ms": wall_ms(call, 10),
             }
+            if name.startswith("8-bit") and "4:2:0" in name:  # the SASS counts' kernels
+                kernel = {"rgb_to_yuv": "rgb_to_yuv sharp" if sharp else "rgb_to_yuv average",
+                          "yuv_to_rgb": "yuv_to_rgb bilinear"}[way]
+                row[way]["sass_a_site"] = {k: sass[kernel][k] for k in ("conversions_a_site", "f64_ops_a_site")}
         rows.append(row)
 
         def line(way):

@@ -26,8 +26,11 @@ samples, so only the same rounding sequence gives the same codes there.
 Which product of a sum the compiler rounds first is not fixed by the
 program, so a sample can still land one code value away from the JAX
 package's (``tests/test_torch_reformat.py`` states the tolerance). The
-FMA is emulated in fp64, in the plain versions and in the kernels alike,
-so the kernels equal the plain versions bit for bit.
+plain versions emulate the FMA in fp64; the kernels take one fp32 FMA
+where that provably rounds the same, and guard the rest with a fallback
+to the fp64 form (``csrc/reformat.cu``), so they equal the plain versions
+bit for bit. The kernels' parameters are built once per configuration
+and shape.
 
 Samples cross the host boundary, and leave the programs, in their own
 width: uint8 as uint8, uint16 as its int16 bit pattern (torch has no
@@ -44,6 +47,8 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
+from fractions import Fraction
 from typing import Optional
 
 import numpy as np
@@ -537,19 +542,61 @@ class _RgbToYuvParams(ctypes.Structure):
 
     _fields_ = [(name, ctypes.c_int) for name in (
         "h", "w", "ch", "cw", "mode", "sx", "sy", "sharp", "mono", "in_bytes", "out_bytes", "shift", "offset",
-        "unused")] + [(name, ctypes.c_double) for name in (
+        "guard_uv")] + [(name, ctypes.c_double) for name in (
             "inv", "kr", "kg", "kb", "half_g", "scale_u", "scale_v", "k3_u", "k3_v", "y_scale", "y_round",
             "uv_scale_u", "uv_scale_v", "uv_round", "out_max")]
 
 
+def _check_fp32(prm: ctypes.Structure) -> None:
+    """Every double of the kernel's parameters is an fp32 value (or NaN):
+    the kernel narrows them to float, and its single fp32 FMAs equal the
+    plain version's fp64-emulated ones only on fp32 operands."""
+    for name, ctype in prm._fields_:
+        x = getattr(prm, name)
+        if ctype is ctypes.c_double and float(np.float32(x)) != x and x == x:
+            raise AssertionError(f"reformat parameter {name} = {x!r} is not an fp32 value")
+
+
+def _unorm_safe(scale: float, bias: float, depth: int) -> bool:
+    """Whether floor(x * scale + bias + 1/2), clamped to [0, 2^depth - 1],
+    takes the same value whether the multiply-add rounds once to fp32 or
+    first to fp64, for every fp32 x: bias 0, or the odd part of scale at
+    most 2^(28 - depth) - 32 (the argument at ``floor_bits`` in
+    ``csrc/reformat.cu``)."""
+    if bias == 0:
+        return True
+    if scale != scale:
+        return False
+    odd = Fraction(scale).numerator
+    odd >>= (odd & -odd).bit_length() - 1
+    return odd <= (1 << (28 - depth)) - 32
+
+
 def _yuv_to_rgb_params(y, u, mode: str, kw: dict) -> _YuvToRgbParams:
     """The YUV -> RGB kernel's parameters: the plain version's constants,
-    as the doubles it uses."""
-    h, w = y.shape
-    prm = _YuvToRgbParams(h=h, w=w, mode=_MODE_CODES[mode], in_bytes=y.element_size(),
+    as the doubles it uses. Built once per configuration and shape; each
+    call gets its own copy."""
+    prm = _yuv_to_rgb_params_of(tuple(y.shape), y.element_size(), None if u is None else tuple(u.shape), mode,
+                                tuple(sorted(kw.items())))
+    return _YuvToRgbParams.from_buffer_copy(prm)
+
+
+def _rgb_to_yuv_params(rgb, mode: str, kw: dict) -> _RgbToYuvParams:
+    """The RGB -> YUV kernel's parameters: the plain version's constants,
+    as the doubles it uses. Built once per configuration and shape; each
+    call gets its own copy."""
+    prm = _rgb_to_yuv_params_of(tuple(rgb.shape), rgb.element_size(), mode, tuple(sorted(kw.items())))
+    return _RgbToYuvParams.from_buffer_copy(prm)
+
+
+@functools.lru_cache(maxsize=256)
+def _yuv_to_rgb_params_of(shape, in_bytes, chroma_shape, mode: str, settings) -> _YuvToRgbParams:
+    kw = dict(settings)
+    h, w = shape
+    prm = _YuvToRgbParams(h=h, w=w, mode=_MODE_CODES[mode], in_bytes=in_bytes,
                           out_bytes=1 if kw["rgb_depth"] <= 8 else 2)
-    if u is not None:
-        prm.ch, prm.cw = u.shape
+    if chroma_shape is not None:
+        prm.ch, prm.cw = chroma_shape
     if mode == "identity":
         prm.shift = kw["rgb_depth"] - kw["depth"]
     elif mode in _LIFTS:
@@ -565,14 +612,15 @@ def _yuv_to_rgb_params(y, u, mode: str, kw: dict) -> _YuvToRgbParams:
             prm.g_k = _k(2.0, _recip(1.0 - kr - kb))
         prm.out_scale = prm.out_max = float((1 << kw["rgb_depth"]) - 1)
         prm.out_round = 0.0 + 0.5
+    _check_fp32(prm)
     return prm
 
 
-def _rgb_to_yuv_params(rgb, mode: str, kw: dict) -> _RgbToYuvParams:
-    """The RGB -> YUV kernel's parameters: the plain version's constants,
-    as the doubles it uses."""
-    h, w, _ = rgb.shape
-    prm = _RgbToYuvParams(h=h, w=w, mode=_MODE_CODES[mode], in_bytes=rgb.element_size(),
+@functools.lru_cache(maxsize=256)
+def _rgb_to_yuv_params_of(shape, in_bytes, mode: str, settings) -> _RgbToYuvParams:
+    kw = dict(settings)
+    h, w, _ = shape
+    prm = _RgbToYuvParams(h=h, w=w, mode=_MODE_CODES[mode], in_bytes=in_bytes,
                           out_bytes=1 if kw["depth"] <= 8 else 2)
     if mode in _LIFTS:
         prm.ch, prm.cw = h, w
@@ -601,6 +649,8 @@ def _rgb_to_yuv_params(rgb, mode: str, kw: dict) -> _RgbToYuvParams:
         factors = (1.0 / (1 << (sx + sy)),) * 2
     prm.uv_scale_u, prm.uv_scale_v = (_k(f, uv_rng) for f in factors)
     prm.out_max = float((1 << kw["depth"]) - 1)
+    prm.guard_uv = not all(_unorm_safe(s, uv_bias, kw["depth"]) for s in (prm.uv_scale_u, prm.uv_scale_v))
+    _check_fp32(prm)
     return prm
 
 

@@ -498,6 +498,40 @@ def test_reformat_lift_kernels_equal_plain_versions(cuda, mc, rgb_depth, depth):
                          yuv_range=Range.FULL, matrix_coefficients=mc, color_primaries=2)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(1, 261), (261, 1), (37, 259), (5, 4099), (3, 24)])
+@pytest.mark.parametrize("fmt", _KERNEL_FORMATS, ids=lambda f: f.name)
+def test_reformat_kernels_at_any_width_and_alignment(cuda, fmt, h, w):
+    """Rows whose width is no multiple of a thread's 8 pixels nor of 16
+    bytes (so each row starts at another alignment), one row, one column,
+    and a width past a block's 256 pixels: 8-bit and 16-bit RGB, 8- and
+    10-bit YUV, matrix and YCgCo."""
+    for depth, rgb_depth in ((8, 8), (10, 16)):
+        for mc in (MatrixCoefficients.BT601, MatrixCoefficients.YCGCO):
+            _kernel_vs_plain(cuda, h, w, depth=depth, rgb_depth=rgb_depth, yuv_format=fmt, yuv_range=Range.FULL,
+                             matrix_coefficients=mc, color_primaries=2)
+
+
+@pytest.mark.cuda
+def test_reformat_kernels_where_their_guards_fail(cuda):
+    """chip_smoke.reformat_guard_cases: planes on which each guarded FMA
+    of the kernels takes its fp64 form (tests/test_torch_reformat_kernel.py
+    shows it with its model); one launch each, equal to the plain
+    version."""
+    import chip_smoke
+
+    for name, way, settings, planes in chip_smoke.reformat_guard_cases():
+        inputs = reformat._to_device(planes, cuda)
+        kernel, plain = ((reformat._rgb_to_yuv, reformat._rgb_to_yuv_reference) if way == "rgb_to_yuv" else
+                         (reformat._yuv_to_rgb, reformat._yuv_to_rgb_reference))
+        before = kernel.launches
+        got, want = kernel(*inputs, **settings), plain(*inputs, **settings)
+        assert kernel.launches == before + 1
+        for g, wnt in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
+            assert torch.equal(g, wnt), name
+    torch.cuda.synchronize()
+
+
 _ARRAYS = dict(depth=8, rgb_depth=8, yuv_format=PixelFormat.YUV420, yuv_range=Range.FULL,
                matrix_coefficients=MatrixCoefficients.BT601)
 
