@@ -9,9 +9,9 @@ Phases, each printed as it runs; any failure ends the run non-zero:
   2. build: K1 (libavif_tpu_torch/csrc/transform2d.cu), K2
      (csrc/encode_wavefront.cu), K3 with K4's tiles behind it
      (csrc/decode_wavefront.cu), K4 alone (csrc/loop_filter.cu, its
-     tile in csrc/loop_filter.cuh) and the two reformat kernels
-     (csrc/reformat.cu) from the sources, one nvcc per source, in
-     parallel;
+     tile in csrc/loop_filter.cuh), the two reformat kernels
+     (csrc/reformat.cu) and the two RD kernels (csrc/rd_costs.cu) from
+     the sources, one nvcc per source, in parallel;
  2b. no device named: Encoder() takes the card; an encode_batch of the 8
      gradient frames with no device= launches K2 16 times (bytes equal
      to phase 4's); rgb_to_yuv_arrays with no device= runs on the card
@@ -85,14 +85,26 @@ Phases, each printed as it runs; any failure ends the run non-zero:
      stage also without the filters; two frames encoded at q50
      (deblocking and CDEF on) decoded on the card with 2 x 2 fused
      launches with the filter stage, planes equal to the CPU port's;
-  7. RD tables: frame 0's luma plane through the spec encoder's RD
-     pre-pass on the card and on the CPU; satd/delta equal (torch.equal),
-     dist/rate within the CPU test's tolerance, the count of qcost
-     entries that differ; the program timed on both;
+  7. RD kernels (csrc/rd_costs.cu: rd_satd, one launch per searched
+     block size, and rd_quant, one per transform size) against their
+     plain versions on the card, each case through dispatch_plan_costs
+     with one launch per table group: frame 0's luma plane at speeds 6
+     and 4, a 10-bit 768x512 plane, a 4032x3024 plane and a 72x100 one
+     (MIN_PELS lowered); satd/delta torch.equal, dist/rate within the CPU
+     test's tolerance (table_diffs); frame 0 also card against CPU, with
+     the count of qcost entries that differ; then at frame 0 (768x512,
+     speed 6): the program per frame device-only (CUDA event pairs behind
+     a stream sleep), each launch by table group device-only, the plain
+     versions on the card per group and per frame, the call, against
+     the bound of the work the function needs (rd_work: int32 ops over
+     the CUDA cores' rate, fp32 FLOP over the fp32 rate, bytes over HBM),
+     and the GEMM formulation's figure once beside it;
   8. spec main path: the 8 frames through encode_batch(quality=75,
      speed=6) with the default codec (spec AV1), counting the RD
-     program's runs on the card (one per frame); the RD program alone
-     for the 8 frames, for the RD/host split;
+     program's runs on the card (one per frame), the RD kernels'
+     launches (rd_satd 3 and rd_quant 4 a frame) and the plain program's
+     runs on the card (none); the RD program alone for the 8 frames, for
+     the RD/host split;
   9. conformance and round trip: the card's files decoded by the port's
      decode equal the shared spec decoder's output; against the same
      frames encoded on the CPU with the RD program off (numpy planner),
@@ -975,7 +987,7 @@ def check_fused(wavefront, recon, frame, tables, dev, smi):
     return numbers
 
 
-def table_diffs(layout, got: np.ndarray, want: np.ndarray):
+def table_diffs(layout, got: np.ndarray, want: np.ndarray, what: str = "card and CPU"):
     """satd/delta exact (torch.equal); dist/rate: rtol 1e-5 (1e-4 for the
     dist of 64x64 transforms) for all but 1 in 1000 entries, the
     tolerance of tests/test_torch_rdsearch_device.py. Returns (entries
@@ -985,7 +997,7 @@ def table_diffs(layout, got: np.ndarray, want: np.ndarray):
         a, b = torch.from_numpy(got[lo:hi]), torch.from_numpy(want[lo:hi])
         if kind in ("satd", "delta"):
             if not torch.equal(a, b):
-                raise AssertionError(f"RD {kind} table px={key} differs between card and CPU")
+                raise AssertionError(f"RD {kind} table px={key} differs between {what}")
             continue
         rel = (a - b).abs() / b.abs().clamp_min(1e-30)
         rtol = 1e-4 if kind == "dist" and key > 32 else 1e-5
@@ -993,40 +1005,158 @@ def table_diffs(layout, got: np.ndarray, want: np.ndarray):
         total += hi - lo
         worst = max(worst, float(rel.max()))
     if off > total // 1000:
-        raise AssertionError(f"{off} of {total} RD dist/rate entries outside tolerance")
+        raise AssertionError(f"{off} of {total} RD dist/rate entries outside tolerance between {what}")
     return off, total, worst
 
 
-def rd_bound_ms(rdsearch_device, h: int, w: int) -> tuple:
-    """(bound ms, 'operations' or 'bytes') of one RD pre-pass over an h x w
-    8-bit luma plane at SPEED: the fp32 products its shapes need (each
-    prediction bank's ext1 @ G, the Hadamard SATD and the DCT of every
-    candidate residual) over the fp32 rate, against the plane read as
-    int32 and the packed float32 tables written, over HBM."""
-    prog = rdsearch_device._program(h, w, SPEED, 8, "cpu")
+# Multiply-adds (int32) of one predicted sample by its AV1 mode number, as
+# the formulas need them: none for DC_PRED (0; its 2px-sample sum is taken
+# once a block) or the copies V_PRED and H_PRED (1, 2), four for
+# SMOOTH_PRED (9), two for SMOOTH_V/H_PRED (10, 11), a + l - c for
+# PAETH_PRED (12), two taps for a directional mode (3-8).
+RD_PRED_OPS = {0: 0, 1: 0, 2: 0, 9: 4, 10: 2, 11: 2, 12: 2}
+RD_V_H, RD_PAETH = (1, 2), 12
+
+
+def rd_work(prog) -> dict:
+    """Per kernel of the RD pre-pass, the work the function needs on one
+    plane, whatever computes it: {"rd_satd" | "rd_quant": (int32 ops,
+    fp32 FLOP, bytes)}.
+
+    rd_satd, per block of each searched size and per distinct prediction
+    (the candidate modes, and the six nonzero angle deltas of each
+    directional mode but V and H, whose deltas copy the mode, fault o):
+    per sample the prediction's multiply-adds (RD_PRED_OPS), the residual,
+    the 8x8 Hadamard's 2 log2 8 = 6 additions and the absolute sum (2);
+    DC's sum once a block. rd_quant, per block of each transform size and
+    candidate mode: per sample the prediction and the residual (int32);
+    per coefficient the separable DCT's 2 txs multiply-adds (4 txs FLOP,
+    every coefficient, also those a 64x64 transform drops), per kept
+    coefficient the quantizer (c rq, round, lv qs, the difference, its
+    square summed: 6) and the rate (|lv|, the clamp, 1 + alv, log2, the
+    sums: 6), at txs = 64 the energies (2 a coefficient, 2 more a kept
+    one). Bytes: the plane read once as int32, the kernel's tables read
+    once, its rows of the packed vector written once."""
+    meta = prog.meta
+    work = {"rd_satd": [0, 0, 0], "rd_quant": [0, 0, 0]}
+    cand = meta["cand_modes"]
+    for kind, key, _shape, lo, hi in meta["layout"]:
+        rows, cols = meta["grid"][key]
+        n, px2 = rows * cols, key * key
+        name = "rd_satd" if kind in ("satd", "delta") else "rd_quant"
+        work[name][2] += 4 * (hi - lo)
+        if kind == "satd":
+            preds = [RD_PRED_OPS.get(m, 2) for m in cand]
+            if ("delta", key) in prog.offsets:
+                preds += [2] * (6 * sum(1 for m in meta["dir_modes"] if m not in RD_V_H))
+            work[name][0] += n * px2 * sum(p + 9 for p in preds) + n * 2 * key * (0 in cand)
+            work[name][2] += prog.tables[key].numel() * 4
+        elif kind == "dist":
+            kept = min(key, 32) ** 2
+            work[name][0] += n * px2 * sum(RD_PRED_OPS.get(m, 2) + 1 for m in cand) + n * 2 * key * (0 in cand)
+            fl = px2 * 4 * key + kept * 12 + (2 * px2 + 2 * kept if key > 32 else 0)
+            work[name][1] += n * len(cand) * fl
+            work[name][2] += (prog.tables[key].numel() + prog.basis[key].numel()) * 4
+    for name in work:
+        work[name][2] += 4 * prog.H * prog.W
+    return {name: tuple(v) for name, v in work.items()}
+
+
+def rd_bound_ms(work: tuple) -> tuple:
+    """(bound ms, 'operations' or 'bytes') of (int32 ops, FLOP, bytes): the
+    int32 work at the CUDA cores' rate and the fp32 work at the fp32 rate
+    (the pipes run side by side, so the larger of the two), against the
+    bytes over HBM."""
+    int_ops, flops, nbytes = work
+    ops_ms = max(int_ops / IMAD_PER_S, flops / FP32_FLOP_PER_S) * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def rd_gemm_ms(prog) -> float:
+    """The figure the GEMM formulation's FLOPs give (each prediction
+    bank's ext1 @ G, the Kronecker Hadamard and DCT of every residual,
+    the 16x16+ DCTs as M r M^T) over the fp32 rate: what the bound stated
+    before the kernels; printed once beside the bound."""
     meta = prog.meta
     flops = 0
     for kind, key, _shape, _lo, _hi in meta["layout"]:
         if kind == "rate":  # computed with "dist", from the same residuals
             continue
         rows, cols = meta["grid"][key]
-        bank = prog.delta_banks[key] if kind == "delta" else prog.mode_banks[key]
-        if bank.G is not None:
-            flops += 2 * rows * cols * bank.G.shape[0] * bank.G.shape[1]
-        res = rows * cols * len(bank.variants) * key * key  # residual samples
+        variants = prog.delta_variants if kind == "delta" else prog.mode_variants
+        linear = sum(1 for m, _ in variants if m != RD_PAETH)
+        flops += 2 * rows * cols * (4 * key + 2) * linear * key * key
+        res = rows * cols * len(variants) * key * key  # residual samples
         if kind in ("satd", "delta"):
             flops += 2 * res * min(8, key) ** 2
         elif key in prog.kron_dct:
             flops += 2 * res * key * key
         else:
             flops += 4 * res * min(key, 64)
-    ops_ms = flops / FP32_FLOP_PER_S * 1e3
-    bytes_ms = 4 * (h * w + meta["total"]) / HBM_BYTES_PER_S * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+    return flops / FP32_FLOP_PER_S * 1e3
 
 
-def check_rd_tables(rdsearch_device, luma, qindex, dev, smi):
-    """Phase 7: the RD pre-pass on the card against the CPU."""
+def rd_plane(shape, bd: int, seed: int) -> np.ndarray:
+    """A seeded ramp with noise (the CPU tests' RD planes), some samples at
+    0 and at the maximum."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0 : shape[0], 0 : shape[1]]
+    p = (((yy * 3 + xx * 2) << (bd - 8)) + rng.integers(0, 40 << (bd - 8), shape)) % (1 << bd)
+    p[rng.random(shape) < 0.02] = (1 << bd) - 1
+    p[rng.random(shape) < 0.02] = 0
+    return p.astype(np.int32)
+
+
+def rd_cases(luma: np.ndarray) -> list:
+    """Phase 7's (name, plane, speed, bd): the main path's frame at speeds 6
+    and 4, a 10-bit 768x512 plane, a 4032x3024 plane, and 72x100 (an odd
+    grid, under MIN_PELS: run with it lowered)."""
+    return [
+        (f"{W}x{H} s{SPEED} 8-bit (frame 0)", luma, SPEED, 8),
+        (f"{W}x{H} s4 8-bit (frame 0)", luma, 4, 8),
+        (f"{W}x{H} s{SPEED} 10-bit", rd_plane((H, W), 10, 10), SPEED, 10),
+        (f"{PHOTO_W}x{PHOTO_H} s{SPEED} 8-bit", rd_plane((PHOTO_H, PHOTO_W), 8, 12), SPEED, 8),
+        ("100x72 s4 8-bit, MIN_PELS lowered", rd_plane((72, 100), 8, 72), 4, 8),
+    ]
+
+
+def check_rd_tables(rdsearch_device, luma, qindex, dev, smi) -> dict:
+    """Phase 7: the RD kernels (csrc/rd_costs.cu) against their plain
+    versions on the card, on rd_cases: satd/delta torch.equal, dist/rate
+    by table_diffs; the main path's frame also against the CPU; then, at
+    the main path's frame, the program per frame device-only, each launch
+    by table group, the plain versions on the card, the call, against the
+    bound. Returns the kernels line's numbers of both kernels."""
+    errs = {"rd_satd": 0.0, "rd_quant": 0.0}
+    worst_rel = 0.0
+    for name, plane, speed, bd in rd_cases(luma):
+        h, w = plane.shape
+        min_pels = rdsearch_device.MIN_PELS
+        rdsearch_device.MIN_PELS = min(min_pels, h * w)
+        try:
+            before = rdsearch_device.rd_satd.launches + rdsearch_device.rd_quant.launches
+            card = rdsearch_device.dispatch_plan_costs(plane, qindex, speed, bd, dev)
+        finally:
+            rdsearch_device.MIN_PELS = min_pels
+        prog = rdsearch_device._program(h, w, speed, bd, str(dev))
+        groups = sum(kind in ("satd", "dist") for kind, *_ in prog.meta["layout"])
+        if rdsearch_device.rd_satd.launches + rdsearch_device.rd_quant.launches != before + groups:
+            raise AssertionError(f"RD {name}: not one kernel launch per table group ({groups})")
+        lam_x16, qs, rq, _ = rdsearch_device.program_args(prog, qindex)
+        src = torch.from_numpy(plane).to(dev)
+        plain = prog.plain(src, lam_x16, qs, rq).cpu().numpy()
+        got = card.flat()
+        off, total, worst = table_diffs(prog.meta["layout"], got, plain, f"the kernels and the plain version, {name}")
+        worst_rel = max(worst_rel, worst)
+        for kind, key, _s, lo, hi in prog.meta["layout"]:
+            kernel = "rd_satd" if kind in ("satd", "delta") else "rd_quant"
+            errs[kernel] = max(errs[kernel], float(np.abs(got[lo:hi] - plain[lo:hi]).max()))
+        print(f"[rd] {name}: kernels vs plain version on the card: satd/delta equal (torch.equal), dist/rate "
+              f"{off} of {total} outside rtol, max rel diff {worst:.3e}; {groups} launches", flush=True)
+
+    # the main path's frame: the card against the CPU, then timed
+    prog = rdsearch_device._program(H, W, SPEED, 8, str(dev))
     card = rdsearch_device.dispatch_plan_costs(luma, qindex, SPEED, 8, dev)
     cpu = rdsearch_device.dispatch_plan_costs(luma, qindex, SPEED, 8, "cpu")
     off, total, worst = table_diffs(card.meta["layout"], card.flat(), cpu.flat())
@@ -1038,18 +1168,57 @@ def check_rd_tables(rdsearch_device, luma, qindex, dev, smi):
           f"dist/rate {off} of {total} outside rtol, max rel diff {worst:.3e}; "
           f"qcost entries differing {qdiff} of {qtotal}", flush=True)
 
-    def run():
-        rdsearch_device.dispatch_plan_costs(luma, qindex, SPEED, 8, dev)
-
-    card_ms = time_ms(run, 10)
-    t0 = time.perf_counter()
-    for _ in range(2):
-        rdsearch_device.dispatch_plan_costs(luma, qindex, SPEED, 8, "cpu").flat()
-    cpu_ms = (time.perf_counter() - t0) / 2 * 1e3
-    bound, bound_by = rd_bound_ms(rdsearch_device, *luma.shape)
-    print(f"[rd] program per frame: card {card_ms:.3f} ms (CUDA events, 10 runs) on {smi}; "
-          f"CPU {cpu_ms:.3f} ms (host clock, 2 runs) on the same machine; bound {bound:.5f} ms "
-          f"({bound_by})", flush=True)
+    lam_x16, qs, rq, _ = rdsearch_device.program_args(prog, qindex)
+    src = torch.from_numpy(luma).to(dev)
+    out = torch.empty(prog.meta["total"], dtype=torch.float32, device=dev)
+    launches = {}  # (kernel, key): (launch, plain version)
+    for kind, key, *_ in prog.meta["layout"]:
+        if kind == "satd":
+            launches["rd_satd", key] = (lambda k=key: rdsearch_device.rd_satd(prog, src, out, k, lam_x16),
+                                        lambda k=key: prog.plain_satd(src, k, lam_x16))
+        elif kind == "dist":
+            launches["rd_quant", key] = (lambda k=key: rdsearch_device.rd_quant(prog, src, out, k, qs[k], rq[k]),
+                                         lambda k=key: prog.plain_quant(src, k, qs[k], rq[k]))
+    iters = 20
+    frame = launch_ms(lambda: prog(src, lam_x16, qs, rq), iters)
+    frame_ms = frame[iters // 2]
+    plain_frame_ms = time_ms(lambda: prog.plain(src, lam_x16, qs, rq), 10)
+    call_ms = time_ms(lambda: rdsearch_device.dispatch_plan_costs(luma, qindex, SPEED, 8, dev), 10)
+    work = rd_work(prog)
+    numbers = {}
+    for kernel in ("rd_satd", "rd_quant"):
+        per = {}
+        for (name, key), (launch, plain) in launches.items():
+            if name == kernel:
+                ms = launch_ms(launch, iters)
+                per[key] = {"ms": ms[iters // 2], "plain_ms": time_ms(plain, 5)}
+        bound, bound_by = rd_bound_ms(work[kernel])
+        numbers[kernel] = {
+            "ms": sum(v["ms"] for v in per.values()),
+            "plain_ms": sum(v["plain_ms"] for v in per.values()),
+            "bound_ms": bound, "bound_by": bound_by, "max_abs_err": errs[kernel],
+            "int32_ops": work[kernel][0], "fp32_flop": work[kernel][1], "bytes": work[kernel][2],
+            "per_launch": {str(k): v for k, v in per.items()},
+        }
+        print(f"[rd] {kernel} at {W}x{H} s{SPEED}, per launch (table group) device-only (median of {iters} CUDA "
+              f"event pairs behind a stream sleep) and its plain version on the card (CUDA events, 5 runs): "
+              + ", ".join(f"{k}: {v['ms']:.5f} ms, plain {v['plain_ms']:.3f} ms" for k, v in per.items())
+              + f"; per frame {numbers[kernel]['ms']:.5f} ms, plain {numbers[kernel]['plain_ms']:.3f} ms; bound "
+              f"{bound:.5f} ms ({bound_by}: {work[kernel][0]:.4g} int32 ops, {work[kernel][1]:.4g} FLOP, "
+              f"{work[kernel][2]:.4g} bytes); on {smi}", flush=True)
+    total_work = tuple(map(sum, zip(work["rd_satd"], work["rd_quant"])))
+    bound, bound_by = rd_bound_ms((*total_work[:2], total_work[2] - 4 * H * W))  # the plane read once
+    print(f"[rd] program per frame at {W}x{H} s{SPEED}: kernels {frame_ms:.5f} ms device-only ({len(launches)} "
+          f"launches; median of {iters}, quartiles {frame[iters // 4]:.5f}/{frame[3 * iters // 4]:.5f} ms), the call "
+          f"(upload, launches, the fetch started) {call_ms:.5f} ms (CUDA events, 10 runs), the plain version on the "
+          f"card {plain_frame_ms:.3f} ms (CUDA events, 10 runs); bound {bound:.5f} ms ({bound_by}), "
+          f"{100 * bound / frame_ms:.1f}% of it; the GEMM formulation's FLOPs over the fp32 rate (the bound "
+          f"stated before the kernels) {rd_gemm_ms(prog):.5f} ms; max rel diff of dist/rate "
+          f"kernels vs plain over phase 7's cases {worst_rel:.3e}; on {smi}", flush=True)
+    for kernel in numbers:
+        numbers[kernel].update(frame_ms=frame_ms, frame_plain_ms=plain_frame_ms, frame_call_ms=call_ms,
+                               frame_bound_ms=bound)
+    return numbers
 
 
 def plane_diff(got: np.ndarray, want: np.ndarray, what: str) -> int:
@@ -2230,20 +2399,30 @@ def main() -> int:
           f"equal the CPU port's, Y-PSNR {y_psnr(q50_card[0], imgs[0]):.4f} / {y_psnr(q50_card[1], imgs[1]):.4f} "
           f"dB", flush=True)
 
-    # 7. RD tables, card against CPU
+    # 7. RD kernels against their plain versions on the card, and the card against the CPU
     qindex = _spec_qindex(FrameParams(quality=QUALITY))
-    check_rd_tables(rdsearch_device, np.asarray(imgs[0].yuv_planes[0], np.int32), qindex, dev, smi)
+    rd = check_rd_tables(rdsearch_device, np.asarray(imgs[0].yuv_planes[0], np.int32), qindex, dev, smi)
 
     # 8. spec main path (the default codec)
     runs = rdsearch_device.dispatch_plan_costs.runs
+    plain_runs = rdsearch_device._Program.plain.runs
+    rd_counters = (rdsearch_device.rd_satd, rdsearch_device.rd_quant)
     cuda_kernels.transform_2d.launches = wavefront.encode_wavefront.launches = 0
+    for counter in rd_counters:
+        counter.launches = 0
     runs.clear()
+    plain_runs.clear()
     t0 = time.perf_counter()
     spec_files = encode_batch(imgs, quality=QUALITY, speed=SPEED, device=dev)
     torch.cuda.synchronize()
     spec_s = time.perf_counter() - t0
-    if runs["cuda"] != BATCH or runs["cpu"] != 0:
-        raise AssertionError(f"RD program runs {dict(runs)}, expected {BATCH} on cuda")
+    rd_launches = tuple(counter.launches for counter in rd_counters)
+    # per frame one rd_satd launch per searched block size and one rd_quant per transform size (3 + 4 at speed 6)
+    groups = rdsearch_device._program(H, W, SPEED, 8, str(dev)).meta["layout"]
+    want = (BATCH * sum(k == "satd" for k, *_ in groups), BATCH * sum(k == "dist" for k, *_ in groups))
+    if runs["cuda"] != BATCH or runs["cpu"] != 0 or rd_launches != want or plain_runs["cuda"] != 0:
+        raise AssertionError(f"RD program runs {dict(runs)}, expected {BATCH} on cuda; rd_satd, rd_quant launches "
+                             f"{rd_launches}, expected {want}; plain programs {dict(plain_runs)}, none on cuda")
     spec_k1, spec_runs = cuda_kernels.transform_2d.launches, runs["cuda"]
     t0 = time.perf_counter()
     handles = [rdsearch_device.dispatch_plan_costs(np.asarray(im.yuv_planes[0], np.int32),
@@ -2252,7 +2431,8 @@ def main() -> int:
         rdsearch_device.materialize_plan_costs(h)
     rd_s = time.perf_counter() - t0
     print(f"[spec] {BATCH} x {W}x{H} q{QUALITY} s{SPEED} default codec: {spec_s:.3f} s, "
-          f"{BATCH * W * H / 1e6 / spec_s:.4f} MP/s, RD program runs on cuda {spec_runs}, "
+          f"{BATCH * W * H / 1e6 / spec_s:.4f} MP/s, RD program runs on cuda {spec_runs} (rd_satd launches "
+          f"{rd_launches[0]}, rd_quant launches {rd_launches[1]}, plain programs on cuda {plain_runs['cuda']}), "
           f"K1 launches {spec_k1}, {sum(map(len, spec_files))} bytes; RD program alone for the "
           f"{BATCH} frames {rd_s:.3f} s (host encode about {spec_s - rd_s:.3f} s); on {smi}",
           flush=True)
@@ -2432,6 +2612,24 @@ def main() -> int:
         },
         *(reformat_numbers(reformat_rows, way, launches)
           for way, launches in zip(("rgb_to_yuv", "yuv_to_rgb"), service_launches)),
+        *({
+            "name": kernel,
+            "route": "cuda",
+            "source": "libavif_tpu_torch/csrc/rd_costs.cu",
+            "replaces": "libavif_tpu/codec/av1/rdsearch_device.py:483",
+            "launches": launches,  # phase 8: the 8 frames' spec encode, one launch per table group
+            # phase 7, kernels vs plain version on the card over its cases (satd/delta are equal)
+            "max_abs_err": rd[kernel]["max_abs_err"],
+            # phase 7 at the main path's frame: the kernel's launches of one frame, device-only
+            "ms": rd[kernel]["ms"],
+            "plain_ms": rd[kernel]["plain_ms"],
+            "bound_ms": rd[kernel]["bound_ms"],
+            "bound_by": rd[kernel]["bound_by"],
+            # no PyTorch call computes a mode search with SATD, or a quantizer with its bit model
+            "library_ms": None,
+            **{key: rd[kernel][key] for key in ("per_launch", "int32_ops", "fp32_flop", "bytes", "frame_ms",
+                                                 "frame_plain_ms", "frame_call_ms", "frame_bound_ms")},
+        } for kernel, launches in zip(("rd_satd", "rd_quant"), rd_launches)),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -1,4 +1,5 @@
-"""The spec encoder's RD pre-pass as one PyTorch program per frame.
+"""The spec encoder's RD pre-pass: two hand-written CUDA kernels per frame
+on the card, one PyTorch program on the CPU.
 
 Port of ``libavif_tpu/codec/av1/rdsearch_device.py`` (an XLA program in
 the JAX package; no Pallas kernel). The port's copy of
@@ -7,32 +8,51 @@ calls ``materialize_plan_costs(handle)`` or
 ``plan_costs_device(...)`` here.
 
 For every searched block size it computes, for all blocks of the frame at
-once: the intra prediction of every candidate mode (Paeth directly, every
-other mode as ``floor(ext1 @ G)`` with a fixed matrix per mode), the
-SATD + lambda*rate cost of each mode, the SATD argmin over the angle
-deltas of each directional mode, and, per transform size, the
-quant-aware distortion (orthonormal DCT, the spec quantizer step) and
-rate (log2 bit model). Everything is packed into one float32 vector in
-the reference's layout; the partition/depth dynamic program stays on the
-host.
+once: the intra prediction of every candidate mode, the SATD +
+lambda*rate cost of each mode, the SATD argmin over the angle deltas of
+each directional mode, and, per transform size, the quant-aware
+distortion (orthonormal DCT, the spec quantizer step) and rate (log2 bit
+model). Everything is packed into one float32 vector in the reference's
+layout; the partition/depth dynamic program stays on the host.
 
-Numerics: the predictions and the SATD tables are exact integers (the
-matrix entries are multiples of 1/512 and the Hadamard entries are ±1, so
-fp32 products and sums are exact in any order), provided the matrix
-products run in full fp32. The distortion and rate sums are fp32 and may
-differ from the reference's in the last bits; a flip near a rounding
+``_Program.__call__`` takes a plane on the card through the kernels of
+``csrc/rd_costs.cu``, written straight into the packed vector:
+``rd_satd`` (``avt_rd_satd``: one launch per searched block size, the
+satd and delta rows) and ``rd_quant`` (``avt_rd_quant``: one launch per
+transform size, the dist and rate rows), 3 + 4 launches a frame at speed
+6, counted in ``rd_satd.launches`` and ``rd_quant.launches``. A plane on
+the CPU takes the plain version, ``_Program.plain``: the reference's
+formulation (Paeth directly, every other mode as ``floor(ext1 @ G)`` with
+a fixed matrix per mode, Kronecker-product Hadamard and DCT up to 8x8),
+whose runs ``_Program.plain.runs`` counts by device type.
+
+Numerics: the predictions and the SATD tables are exact integers. In the
+plain version the matrix entries are multiples of 1/512 and the Hadamard
+entries are ±1, so fp32 products and sums are exact in any order,
+provided the matrix products run in full fp32. The kernels compute the
+same integers by formula: every column of G is the formula's integer
+weights over 2^k plus the rounding bias, so ``floor(ext1 @ G)`` is the
+formula's ``(sum + bias) >> k``; the directional columns are two taps
+that the host derives from the same ``_dir_index_tables`` (``_dir_taps``,
+``_kernel_table``), and the Hadamard runs as integer butterflies. So satd
+and delta are equal on every route. The distortion and rate sums are fp32
+and differ from the reference's, and between the kernels and the plain
+version, in the last bits (the kernels keep the plain version's rounding
+per coefficient but sum in another order); a flip near a rounding
 boundary can change a near-tie decision, not conformance.
 
-Only the reference's default formulation is carried (GEMM prediction,
-Kronecker-product DCT up to 8x8); neither is a switch here. Frames under
-``MIN_PELS`` pels, or under 8 on a side, get no program and take the
-numpy path, as in the reference.
+The V_PRED and H_PRED variants of the delta bank predict the plain copy
+at every angle delta, as the reference's ``_linear_G`` tests the mode
+before the angle (reference fault o in ROADMAP.md); the kernels keep it.
+Frames under ``MIN_PELS`` pels, or under 8 on a side, get no program and
+take the numpy path, as in the reference.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import ctypes
 import dataclasses
 import functools
 import threading
@@ -41,6 +61,7 @@ import numpy as np
 import torch
 
 from ... import default_device
+from ...ops import _build
 from ...ops.wavefront import first_argmin as _first_argmin
 from ..transfer import finish_fetch, start_fetch, upload
 from . import intra as I
@@ -59,7 +80,7 @@ from .rdsearch import (
 )
 
 __all__ = ["plan_costs_device", "dispatch_plan_costs", "materialize_plan_costs",
-           "held_for_planner", "MIN_PELS"]
+           "held_for_planner", "MIN_PELS", "rd_satd", "rd_quant"]
 
 # Smaller frames take the numpy path (reference: rdsearch_device.py:516).
 MIN_PELS = 131072
@@ -133,6 +154,30 @@ def _dir_index_tables(mode, px, angle):
     return ("b", b0, b1, shift, c0, c1, shift2, base >= -1)
 
 
+def _dir_taps(mode, px, angle=None):
+    """The two taps of every sample of a directional (mode, angle) at size
+    px, over ext1 = [corner, above(2px), left(2px), 1]: columns r0, r1 and
+    the weight s of r1 in 1/32, each (px*px,) in raster order, so the
+    prediction is (ext1[r0] * (32 - s) + ext1[r1] * s + 16) >> 5."""
+    if angle is None:
+        angle = I.MODE_TO_ANGLE[mode]
+    kind, b0, b1, shift, c0, c1, shift2, use_a = _dir_index_tables(mode, px, angle)
+
+    def a_col(i):  # ext_a index -> ext1 column
+        return np.where(i <= 0, 0, np.minimum(i, 2 * px)).reshape(-1)
+
+    def l_col(i):  # ext_l index -> ext1 column
+        return np.where(i <= 0, 0, 2 * px + np.minimum(i, 2 * px)).reshape(-1)
+
+    if kind == "a":
+        return a_col(b0), a_col(b1), shift.reshape(-1)
+    if kind == "l":
+        return l_col(b0), l_col(b1), shift.reshape(-1)
+    ua = use_a.reshape(-1)
+    return (np.where(ua, a_col(b0), l_col(c0)), np.where(ua, a_col(b1), l_col(c1)),
+            np.where(ua, shift.reshape(-1), shift2.reshape(-1)))
+
+
 def _linear_G(mode, px, angle=None):
     """(4px+2, px*px) matrix of one linear intra mode over
     ext1 = [corner, above(2px), left(2px), 1]. The dyadic weights and the
@@ -145,12 +190,6 @@ def _linear_G(mode, px, angle=None):
     bias = L1 - 1
     cols = np.arange(h * w)
     ys, xs = cols // w, cols % w
-
-    def a_col(i):  # ext_a index -> ext1 column
-        return np.where(i <= 0, 0, np.minimum(i, 2 * px))
-
-    def l_col(i):  # ext_l index -> ext1 column
-        return np.where(i <= 0, 0, 2 * px + np.minimum(i, 2 * px))
 
     if mode == I.DC_PRED:
         G[1:1 + px, :] = 1.0 / (2 * px)
@@ -179,27 +218,36 @@ def _linear_G(mode, px, angle=None):
         np.add.at(G, (np.full_like(cols, w), cols), (256 - wx) / 256)
         G[bias, :] = 0.5
     else:  # directional
-        if angle is None:
-            angle = I.MODE_TO_ANGLE[mode]
-        kind, b0, b1, shift, c0, c1, shift2, use_a = _dir_index_tables(mode, px, angle)
-        sh = shift.reshape(-1).astype(np.float64)
-        if kind == "a":
-            np.add.at(G, (a_col(b0.reshape(-1)), cols), (32 - sh) / 32)
-            np.add.at(G, (a_col(b1.reshape(-1)), cols), sh / 32)
-        elif kind == "l":
-            np.add.at(G, (l_col(b0.reshape(-1)), cols), (32 - sh) / 32)
-            np.add.at(G, (l_col(b1.reshape(-1)), cols), sh / 32)
-        else:
-            ua = use_a.reshape(-1)
-            sh2 = shift2.reshape(-1).astype(np.float64)
-            r0 = np.where(ua, a_col(b0.reshape(-1)), l_col(c0.reshape(-1)))
-            r1 = np.where(ua, a_col(b1.reshape(-1)), l_col(c1.reshape(-1)))
-            w0 = np.where(ua, (32 - sh) / 32, (32 - sh2) / 32)
-            w1 = np.where(ua, sh / 32, sh2 / 32)
-            np.add.at(G, (r0, cols), w0)
-            np.add.at(G, (r1, cols), w1)
+        r0, r1, s = _dir_taps(mode, px, angle)
+        s = s.astype(np.float64)
+        np.add.at(G, (r0, cols), (32 - s) / 32)
+        np.add.at(G, (r1, cols), s / 32)
         G[bias, :] += 0.5
     return G
+
+
+# The kernels' variant kinds (csrc/rd_costs.cu, enum Kind): each mode the
+# reference's _linear_G (or pred_bank, for Paeth) treats by its own branch,
+# whatever the angle; every other mode is directional (_DIR).
+_KINDS = {I.DC_PRED: 0, I.V_PRED: 1, I.H_PRED: 2, I.SMOOTH_PRED: 3, I.SMOOTH_V_PRED: 4,
+          I.SMOOTH_H_PRED: 5, I.PAETH_PRED: 6}
+_DIR = 7
+
+
+def _kernel_table(px: int, variants: tuple) -> np.ndarray:
+    """The kernels' int32 table of one block size: a word per variant
+    (its kind | the index of its taps << 4), the smooth weights of px, then
+    px*px tap words per directional variant (r0 | r1 << 9 | s << 18, from
+    ``_dir_taps``)."""
+    desc, taps = [], []
+    for mode, angle in variants:
+        if mode in _KINDS:
+            desc.append(_KINDS[mode])
+            continue
+        r0, r1, s = _dir_taps(mode, px, angle)
+        desc.append(_DIR | len(taps) << 4)
+        taps.append(r0 | r1 << 9 | s << 18)
+    return np.concatenate([desc, I._sm_weights()[px], *taps]).astype(np.int32)
 
 
 # ------------------------------------------------------------ the program
@@ -217,10 +265,25 @@ class _Bank:
     G: torch.Tensor | None  # (4px+2, len(linear) * px * px) float32
 
 
+class _SatdArgs(ctypes.Structure):
+    """``RdSatdArgs`` of csrc/rd_costs.cu."""
+
+    _fields_ = [(name, ctypes.c_int) for name in ("H", "W", "rows", "cols", "bd", "n_modes", "n_dir", "n_var")] + [
+        ("bits", ctypes.c_int * 16)]
+
+
+class _QuantArgs(ctypes.Structure):
+    """``RdQuantArgs`` of csrc/rd_costs.cu."""
+
+    _fields_ = [(name, ctypes.c_int) for name in ("H", "W", "rows", "cols", "bd", "n_modes", "n_var")] + [
+        (name, ctypes.c_float) for name in ("qs_dc", "qs_ac", "rq_dc", "rq_ac", "nz", "mag", "txb")]
+
+
 class _Program:
     """The whole-frame cost program of one (H, W, speed, bd, device), with
     its static tables on the device (the counterpart of the reference's
-    jitted ``_compiled``)."""
+    jitted ``_compiled``): the kernels' tables, built here, and the plain
+    version's prediction banks, built at its first run."""
 
     def __init__(self, H: int, W: int, speed: int, bd: int, device: torch.device):
         cfg = speed_config(speed)
@@ -260,14 +323,11 @@ class _Program:
         self.all_px = all_px
         self.meta = dict(layout=layout, total=off, sizes=sizes, txs_cfg=txs_cfg,
                          cand_modes=cand_modes, dir_modes=dir_modes, grid=grid)
+        self.offsets = {(kind, key): lo for kind, key, _shape, lo, _hi in layout}
 
         dts = (0,) + _DIR_DELTAS
-        mode_variants = tuple((m, None) for m in cand_modes)
-        delta_variants = tuple((m, I.MODE_TO_ANGLE[m] + 3 * d) for m in dir_modes for d in dts)
-        self.mode_banks = {px: self._bank(px, mode_variants) for px in set(sizes) | set(txs_cfg)}
-        self.delta_banks = {
-            key: self._bank(key, delta_variants) for kind, key, *_ in layout if kind == "delta"
-        }
+        self.mode_variants = tuple((m, None) for m in cand_modes)
+        self.delta_variants = tuple((m, I.MODE_TO_ANGLE[m] + 3 * d) for m in dir_modes for d in dts)
         # SATD bits term per mode, before the lambda scale
         self.mode_bits = {
             px: [
@@ -284,6 +344,22 @@ class _Program:
         self.dct_m = {
             t: torch.tensor(_ortho_dct(min(t, 64)), **f32) for t in txs_cfg if t > _KRON_MAX
         }
+        # the kernels' tables: per block size the candidate modes, then the
+        # delta variants where that size has a delta table; per transform
+        # size the DCT basis the plain version uses
+        variants = {px: self.mode_variants + (self.delta_variants if ("delta", px) in self.offsets else ())
+                    for px in all_px}
+        self.n_var = {px: len(v) for px, v in variants.items()}
+        self.tables = {px: torch.from_numpy(_kernel_table(px, v)).to(device) for px, v in variants.items()}
+        self.basis = {t: m.contiguous() for t, m in {**self.kron_dct, **self.dct_m}.items()}
+
+    @functools.cached_property
+    def mode_banks(self) -> dict:
+        return {px: self._bank(px, self.mode_variants) for px in self.all_px}
+
+    @functools.cached_property
+    def delta_banks(self) -> dict:
+        return {key: self._bank(key, self.delta_variants) for kind, key, *_ in self.meta["layout"] if kind == "delta"}
 
     def _bank(self, px: int, variants: tuple) -> _Bank:
         paeth = tuple(i for i, (m, _) in enumerate(variants) if m == I.PAETH_PRED)
@@ -294,7 +370,27 @@ class _Program:
             G = torch.tensor(g.astype(np.float32), device=self.device)
         return _Bank(px, variants, paeth, linear, G)
 
-    # -- pieces of the body
+    def __call__(self, src: torch.Tensor, lam_x16: int, qs: dict, rq: dict) -> torch.Tensor:
+        """src (H, W) int32 -> the packed float32 vector. A plane on the card
+        takes the kernels, one launch per table group, each writing its
+        rows of the vector in place; a plane on the CPU the plain version.
+        qs, rq: per transform size the quantizer steps and their fp32
+        reciprocals, as ``_quant_ctx`` gives them."""
+        if (not isinstance(src, torch.Tensor) or src.dtype != torch.int32
+                or tuple(src.shape) != (self.H, self.W) or not src.is_contiguous()):
+            raise ValueError(f"the RD program takes a contiguous ({self.H}, {self.W}) int32 plane, got "
+                             f"{getattr(src, 'dtype', type(src))} {tuple(getattr(src, 'shape', ()))}")
+        if src.device.type == "cpu":
+            return self.plain(src, lam_x16, qs, rq)
+        out = torch.empty(self.meta["total"], dtype=torch.float32, device=src.device)
+        for kind, key, *_ in self.meta["layout"]:
+            if kind == "satd":
+                rd_satd(self, src, out, key, lam_x16)
+            elif kind == "dist":
+                rd_quant(self, src, out, key, qs[key], rq[key])
+        return out
+
+    # -- the plain version: the reference's formulation, piece by piece
 
     def borders(self, p: torch.Tensor, px: int):
         """blocks (n,px,px) i32, above (n,2px), left (n,2px), corner (n,)."""
@@ -384,46 +480,137 @@ class _Program:
                 + float(_TXB_RATE_X16))
         return dist, rate
 
-    def __call__(self, src: torch.Tensor, lam_x16: int, qs: dict, rq: dict) -> torch.Tensor:
-        """src (H, W) int32 on the device -> the packed float32 vector."""
-        meta = self.meta
-        bordered = {}
-        for px in self.all_px:
-            rows, cols = meta["grid"][px]
-            p = src
-            if rows * px > self.H:
-                p = torch.cat([p, p[-1:].expand(rows * px - self.H, -1)], 0)
-            if cols * px > self.W:
-                p = torch.cat([p, p[:, -1:].expand(-1, cols * px - self.W)], 1)
-            bordered[px] = self.borders(p, px)
+    def bordered(self, src: torch.Tensor, px: int):
+        """``borders`` of src padded to whole px blocks by replicating its
+        last row and column."""
+        rows, cols = self.meta["grid"][px]
+        p = src
+        if rows * px > self.H:
+            p = torch.cat([p, p[-1:].expand(rows * px - self.H, -1)], 0)
+        if cols * px > self.W:
+            p = torch.cat([p, p[:, -1:].expand(-1, cols * px - self.W)], 1)
+        return self.borders(p, px)
 
+    def plain_satd(self, src: torch.Tensor, px: int, lam_x16: int):
+        """The plain version of ``rd_satd``: the satd rows of block size px
+        and its delta rows (None where the layout has none), float32."""
+        bordered = self.bordered(src, px)
+        nM = len(self.meta["cand_modes"])
+        preds = self.pred_bank(self.mode_banks[px], bordered)
+        res = bordered[0][None] - preds  # (M, n, px, px)
+        cst = self.satd(res.reshape(-1, px, px), px).reshape(nM, -1)
+        bits = torch.tensor([(lam_x16 * b) >> 4 for b in self.mode_bits[px]], device=src.device)
+        satd = (cst + bits[:, None]).to(torch.float32).reshape(-1)
+        if ("delta", px) not in self.offsets:
+            return satd, None
+        dts = torch.tensor((0,) + _DIR_DELTAS, dtype=torch.float32, device=src.device)
+        preds = self.pred_bank(self.delta_banks[px], bordered)
+        res = bordered[0][None] - preds
+        cst = self.satd(res.reshape(-1, px, px), px)
+        cst = cst.reshape(len(self.meta["dir_modes"]), len(dts), -1).transpose(1, 2)
+        return satd, dts[_first_argmin(cst)].reshape(-1)
+
+    def plain_quant(self, src: torch.Tensor, txs: int, qs, rq):
+        """The plain version of ``rd_quant``: the dist and rate rows of
+        transform size txs, float32."""
+        bordered = self.bordered(src, txs)
+        preds = self.pred_bank(self.mode_banks[txs], bordered)
+        res = (bordered[0][None] - preds).reshape(-1, txs, txs)
+        return self.quant_cost(res, txs, torch.as_tensor(qs, device=src.device),
+                               torch.as_tensor(rq, device=src.device))
+
+    def plain(self, src: torch.Tensor, lam_x16: int, qs: dict, rq: dict) -> torch.Tensor:
+        """The plain version of the program: src (H, W) int32 on any device
+        -> the packed float32 vector, through eager PyTorch ops on src's
+        device."""
+        _Program.plain.runs[src.device.type] += 1
         pieces = {}
-        nM = len(meta["cand_modes"])
-        dts = torch.tensor((0,) + _DIR_DELTAS, dtype=torch.float32, device=self.device)
-        for kind, key, _shape, _lo, _hi in meta["layout"]:
+        for kind, key, *_ in self.meta["layout"]:
             if kind == "satd":
-                px = key
-                preds = self.pred_bank(self.mode_banks[px], bordered[px])
-                res = bordered[px][0][None] - preds  # (M, n, px, px)
-                cst = self.satd(res.reshape(-1, px, px), px).reshape(nM, -1)
-                bits = torch.tensor([(lam_x16 * b) >> 4 for b in self.mode_bits[px]],
-                                    device=self.device)
-                pieces[kind, key] = (cst + bits[:, None]).to(torch.float32).reshape(-1)
-            elif kind == "delta":
-                px = key
-                preds = self.pred_bank(self.delta_banks[px], bordered[px])
-                res = bordered[px][0][None] - preds
-                cst = self.satd(res.reshape(-1, px, px), px)
-                cst = cst.reshape(len(meta["dir_modes"]), len(dts), -1).transpose(1, 2)
-                pieces[kind, key] = dts[_first_argmin(cst)].reshape(-1)
+                pieces["satd", key], pieces["delta", key] = self.plain_satd(src, key, lam_x16)
             elif kind == "dist":
-                txs = key
-                preds = self.pred_bank(self.mode_banks[txs], bordered[txs])
-                res = (bordered[txs][0][None] - preds).reshape(-1, txs, txs)
-                dist, rate = self.quant_cost(res, txs, qs[txs], rq[txs])
-                pieces["dist", txs] = dist
-                pieces["rate", txs] = rate
-        return torch.cat([pieces[kind, key] for kind, key, *_ in meta["layout"]])
+                pieces["dist", key], pieces["rate", key] = self.plain_quant(src, key, qs[key], rq[key])
+        return torch.cat([pieces[kind, key] for kind, key, *_ in self.meta["layout"]])
+
+
+# plain-version runs by device type: the card runs the kernels, so "cuda"
+# stays 0 on the main path
+_Program.plain.runs = collections.Counter()
+
+
+def _launch_checks(what: str, prog: _Program, src: torch.Tensor, out: torch.Tensor, *tables: torch.Tensor) -> int:
+    """Raises on what the kernels do not take; returns the stream."""
+    if src.dtype != torch.int32 or tuple(src.shape) != (prog.H, prog.W) or not src.is_contiguous():
+        raise ValueError(f"{what} takes a contiguous ({prog.H}, {prog.W}) int32 plane")
+    if out.dtype != torch.float32 or tuple(out.shape) != (prog.meta["total"],) or not out.is_contiguous():
+        raise ValueError(f"{what} writes a contiguous ({prog.meta['total']},) float32 vector")
+    if not all(t.is_contiguous() for t in tables):
+        raise ValueError(f"{what}: the tables must be contiguous")
+    if len({src.device, out.device, *(t.device for t in tables)}) != 1:
+        raise ValueError(f"{what}: the plane, the output and the tables must be on one device")
+    if src.device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda, not {src.device}: a CPU plane takes _Program.plain")
+    return torch.cuda.current_stream(src.device).cuda_stream
+
+
+def rd_satd(prog: _Program, src: torch.Tensor, out: torch.Tensor, px: int, lam_x16: int) -> None:
+    """One launch of ``avt_rd_satd`` (csrc/rd_costs.cu) on the current
+    stream: the satd rows of block size px, and its delta rows where the
+    layout has them, written into ``out`` (the packed vector) in place.
+    Counted in ``rd_satd.launches``."""
+    if ("satd", px) not in prog.offsets or px not in (8, 16, 32, 64):
+        raise ValueError(f"rd_satd: the program has no satd table of block size {px}")
+    table = prog.tables[px]
+    stream = _launch_checks("rd_satd", prog, src, out, table)
+    rows, cols = prog.meta["grid"][px]
+    n_modes = len(prog.meta["cand_modes"])
+    n_dir = len(prog.meta["dir_modes"]) if ("delta", px) in prog.offsets else 0
+    bits = [(lam_x16 * b) >> 4 for b in prog.mode_bits[px]]
+    args = _SatdArgs(H=prog.H, W=prog.W, rows=rows, cols=cols, bd=prog.bd, n_modes=n_modes, n_dir=n_dir,
+                     n_var=prog.n_var[px], bits=(ctypes.c_int * 16)(*bits))
+    base = out.data_ptr()
+    delta = base + 4 * prog.offsets["delta", px] if n_dir else None
+    lib = _build.load()
+    with _build.on_device(src.device):
+        rc = lib.avt_rd_satd(ctypes.byref(args), px, src.data_ptr(), table.data_ptr(),
+                             base + 4 * prog.offsets["satd", px], delta, stream)
+    if rc != 0:
+        raise RuntimeError(f"rd_satd launch failed: CUDA error {rc}")
+    rd_satd.launches += 1
+
+
+def rd_quant(prog: _Program, src: torch.Tensor, out: torch.Tensor, txs: int, qs: np.ndarray,
+             rq: np.ndarray) -> None:
+    """One launch of ``avt_rd_quant`` (csrc/rd_costs.cu) on the current
+    stream: the dist and rate rows of transform size txs written into
+    ``out`` in place. qs, rq: the quantizer steps and their reciprocals
+    (``_quant_ctx``: the DC entry, every other entry one AC value).
+    Counted in ``rd_quant.launches``."""
+    if ("dist", txs) not in prog.offsets or txs not in (4, 8, 16, 32, 64):
+        raise ValueError(f"rd_quant: the program has no dist table of transform size {txs}")
+    qs, rq = np.asarray(qs, np.float32).reshape(-1), np.asarray(rq, np.float32).reshape(-1)
+    if qs.size != min(txs, 32) ** 2 or rq.shape != qs.shape or (qs[1:] != qs[1]).any() or (rq[1:] != rq[1]).any():
+        raise ValueError("rd_quant takes a DC step and one AC step per transform size, as _quant_ctx gives them")
+    table, basis = prog.tables[txs], prog.basis[txs]
+    stream = _launch_checks("rd_quant", prog, src, out, table, basis)
+    rows, cols = prog.meta["grid"][txs]
+    n_modes = len(prog.meta["cand_modes"])
+    args = _QuantArgs(H=prog.H, W=prog.W, rows=rows, cols=cols, bd=prog.bd, n_modes=n_modes,
+                      n_var=prog.n_var[txs],
+                      qs_dc=qs[0], qs_ac=qs[1], rq_dc=rq[0], rq_ac=rq[1],
+                      nz=_COEF_NZ_X16, mag=_COEF_MAG_X16, txb=_TXB_RATE_X16)
+    base = out.data_ptr()
+    lib = _build.load()
+    with _build.on_device(src.device):
+        rc = lib.avt_rd_quant(ctypes.byref(args), txs, src.data_ptr(), table.data_ptr(), basis.data_ptr(),
+                              base + 4 * prog.offsets["dist", txs], base + 4 * prog.offsets["rate", txs], stream)
+    if rc != 0:
+        raise RuntimeError(f"rd_quant launch failed: CUDA error {rc}")
+    rd_quant.launches += 1
+
+
+rd_satd.launches = 0
+rd_quant.launches = 0
 
 
 @functools.lru_cache(maxsize=8)
@@ -450,6 +637,21 @@ class PlanCostsHandle:
         return finish_fetch(self.fetch)
 
 
+def program_args(prog: _Program, qindex: int) -> tuple:
+    """The per-call arguments of a program at qindex: (lam_x16, qs, rq,
+    lam_sse_x16), qs and rq per transform size as ``_quant_ctx`` gives
+    them."""
+    bd = prog.bd
+    lam_x16 = max(1, T.ac_q(qindex, bd) >> 1)
+    dcq, acq = T.dc_q(qindex, bd), T.ac_q(qindex, bd)
+    step16 = float(acq) * _tx_gain(16)
+    lam_sse_x16 = max(1, int(round(_LAM_RD_C * step16 * step16 * 16)))
+    qs, rq = {}, {}
+    for txs in prog.meta["txs_cfg"]:
+        _, _, qs[txs], rq[txs] = _quant_ctx(txs, dcq, acq)
+    return lam_x16, qs, rq, lam_sse_x16
+
+
 def dispatch_plan_costs(src: np.ndarray, qindex: int, speed: int, bd: int, device=None):
     """Queue the whole-frame cost program on ``device`` (default:
     ``default_device()``) and start the copy of its result to the host.
@@ -466,15 +668,7 @@ def dispatch_plan_costs(src: np.ndarray, qindex: int, speed: int, bd: int, devic
             "integer tables): torch.set_float32_matmul_precision('highest')"
         )
     prog = _program(H, W, speed, bd, str(device))
-    lam_x16 = max(1, T.ac_q(qindex, bd) >> 1)
-    dcq, acq = T.dc_q(qindex, bd), T.ac_q(qindex, bd)
-    step16 = float(acq) * _tx_gain(16)
-    lam_sse_x16 = max(1, int(round(_LAM_RD_C * step16 * step16 * 16)))
-    qs, rq = {}, {}
-    for txs in prog.meta["txs_cfg"]:
-        _, _, q, r = _quant_ctx(txs, dcq, acq)
-        qs[txs] = upload(q, device)
-        rq[txs] = upload(r, device)
+    lam_x16, qs, rq, lam_sse_x16 = program_args(prog, qindex)
     out = prog(upload(np.ascontiguousarray(src, dtype=np.int32), device), lam_x16, qs, rq)
     dispatch_plan_costs.runs[device.type] += 1
     return PlanCostsHandle(start_fetch(out), prog.meta, lam_sse_x16)

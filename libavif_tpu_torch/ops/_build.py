@@ -126,6 +126,10 @@ def load() -> ctypes.CDLL:
         lib.avt_yuv_to_rgb.argtypes = [ctypes.c_void_p] * 6
         lib.avt_rgb_to_yuv.restype = ctypes.c_int
         lib.avt_rgb_to_yuv.argtypes = [ctypes.c_void_p] * 6
+        lib.avt_rd_satd.restype = ctypes.c_int
+        lib.avt_rd_satd.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
+        lib.avt_rd_quant.restype = ctypes.c_int
+        lib.avt_rd_quant.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6
         _lib = lib
         return _lib
 

@@ -1,7 +1,7 @@
 """Tests that need an NVIDIA GPU: K1, K2 and K3 (the encode and decode wavefronts), K4 (the
 in-loop filters, standalone and as the fused decode launch's stage), the own-format path (per frame, and batched through a one-device codec mesh), the spec path's RD
-pre-pass, the pixel pipeline and animations on the card, each held against the port's own plain
-PyTorch path on the CPU.
+pre-pass (its kernels against their plain version on the card, ``-k rd_kernels``), the pixel pipeline
+and animations on the card, each held against the port's own plain PyTorch path on the CPU.
 
 They skip where ``torch.cuda.is_available()`` is false. This file imports
 no jax (the machine with the card has none), so on that machine it runs
@@ -407,6 +407,105 @@ def test_spec_encode_on_card_runs_the_rd_program(cuda):
     assert rdsearch_device.dispatch_plan_costs.runs["cuda"] == before + 2  # color and alpha
     out = api.decode(data, device=cuda)
     assert out.yuv_planes[0].shape == (256, 512) and out.alpha_plane.shape == (256, 512)
+
+
+def _rd_plane(shape, bd, seed):
+    """The CPU tests' RD planes: a ramp with noise, some samples at 0 and
+    at the maximum (tests/test_torch_rd_kernel.py)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0 : shape[0], 0 : shape[1]]
+    p = (((yy * 3 + xx * 2) << (bd - 8)) + rng.integers(0, 40 << (bd - 8), shape)) % (1 << bd)
+    p[rng.random(shape) < 0.02] = (1 << bd) - 1
+    p[rng.random(shape) < 0.02] = 0
+    return p.astype(np.int32)
+
+
+def _rd_launches():
+    return rdsearch_device.rd_satd.launches, rdsearch_device.rd_quant.launches
+
+
+def _rd_groups(prog):
+    """The (rd_satd, rd_quant) launches of one run: one a table group."""
+    layout = prog.meta["layout"]
+    return sum(k == "satd" for k, *_ in layout), sum(k == "dist" for k, *_ in layout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("speed", [4, 6])
+@pytest.mark.parametrize("shape", [(64, 96), (72, 100), (512, 768)], ids=["64x96", "72x100-odd-grid", "768x512"])
+def test_rd_kernels_equal_plain_version(cuda, monkeypatch, shape, speed, bd):
+    """dispatch_plan_costs on the card launches rd_satd once per searched
+    block size and rd_quant once per transform size, and runs no plain
+    program; its tables against the plain version on the card: satd and
+    delta equal, dist and rate with the tolerance of
+    tests/test_torch_rdsearch_device.py."""
+    monkeypatch.setattr(rdsearch_device, "MIN_PELS", 1)
+    src = _rd_plane(shape, bd, seed=shape[1] + speed + bd)
+    prog = rdsearch_device._program(*shape, speed, bd, str(cuda))
+    before, plain = _rd_launches(), rdsearch_device._Program.plain.runs["cuda"]
+    card = rdsearch_device.dispatch_plan_costs(src, 120, speed, bd, cuda)
+    got = card.flat()
+    torch.cuda.synchronize()
+    satd, quant = _rd_groups(prog)
+    assert _rd_launches() == (before[0] + satd, before[1] + quant)
+    assert rdsearch_device._Program.plain.runs["cuda"] == plain
+    lam_x16, qs, rq, _ = rdsearch_device.program_args(prog, 120)
+    want = prog.plain(torch.from_numpy(src).to(cuda), lam_x16, qs, rq).cpu().numpy()
+    off, total = 0, 0
+    for kind, key, _shape, lo, hi in prog.meta["layout"]:
+        if kind in ("satd", "delta"):
+            np.testing.assert_array_equal(got[lo:hi], want[lo:hi], err_msg=f"{kind} {key}")
+            continue
+        rtol = 1e-4 if kind == "dist" and key > 32 else 1e-5
+        off += int((np.abs(got[lo:hi] - want[lo:hi]) > rtol * np.abs(want[lo:hi])).sum())
+        total += hi - lo
+    assert off <= total // 1000
+
+
+@pytest.mark.cuda
+def test_rd_kernels_keep_fault_o(cuda):
+    """Reference fault o: the V and H delta rows are 0 everywhere, as in
+    the JAX program and the plain version (tests/test_torch_rd_kernel.py)."""
+    src = _rd_plane((512, 768), 8, seed=3)
+    handle = rdsearch_device.dispatch_plan_costs(src, 120, 6, 8, cuda)
+    tables = rdsearch_device.materialize_plan_costs(handle)
+    dir_modes = tables["dir_modes"]
+    for px, rows in tables["delta"].items():
+        assert not rows[dir_modes.index(1)].any() and not rows[dir_modes.index(2)].any(), px
+        assert rows.any(), px
+
+
+@pytest.mark.cuda
+def test_rd_kernels_refuse_a_bad_table_without_fallback(cuda, monkeypatch):
+    """A table the kernel refuses (fewer variants than the program's modes)
+    comes back as a CUDA error and raises; the plain version never runs."""
+    prog = rdsearch_device._program(512, 768, 6, 8, str(cuda))
+    monkeypatch.setitem(prog.n_var, 8, 1)
+    monkeypatch.setattr(rdsearch_device._Program, "plain",
+                        lambda *a, **k: pytest.fail("the plain version ran on the card"))
+    before = _rd_launches()
+    with pytest.raises(RuntimeError, match="rd_satd launch failed: CUDA error"):
+        rdsearch_device.dispatch_plan_costs(_rd_plane((512, 768), 8, seed=4), 120, 6, 8, cuda)
+    assert _rd_launches() == before
+
+
+@pytest.mark.cuda
+def test_rd_kernels_on_the_spec_encode_and_gop(cuda, monkeypatch):
+    """The spec encode of a frame, and every frame of a spec GOP, run the
+    RD kernels (3 + 4 launches a run at speed 6) and no plain program."""
+    img = Image(512, 256, 8, PixelFormat.YUV420)
+    img.allocate_planes("yuv")
+    for p in img.yuv_planes:
+        p[:] = _rd_plane(p.shape, 8, seed=p.shape[0]).astype(np.uint8)
+    runs, plain = rdsearch_device.dispatch_plan_costs.runs, rdsearch_device._Program.plain.runs
+    before, plain_before, launches = runs.copy(), plain.copy(), _rd_launches()
+    api.encode_batch([img], quality=75, speed=6, device=cuda)
+    monkeypatch.setattr(rdsearch_device, "MIN_PELS", 1)
+    _animate(_pan(3, 128, 96), cuda, quality=70)
+    n = (runs - before)["cuda"]
+    assert n == 4 and plain - plain_before == {}  # the still, then the GOP's 3 frames
+    assert _rd_launches() == (launches[0] + 3 * n, launches[1] + 4 * n)
 
 
 _REFORMAT_CASES = [
