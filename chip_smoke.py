@@ -89,11 +89,14 @@ Phases, each printed as it runs; any failure ends the run non-zero:
      block size, and rd_quant, one per transform size) against their
      plain versions on the card, each case through dispatch_plan_costs
      with one launch per table group: frame 0's luma plane at speeds 6
-     and 4, a 10-bit 768x512 plane, a 4032x3024 plane and a 72x100 one
-     (MIN_PELS lowered); satd/delta torch.equal, dist/rate within the CPU
-     test's tolerance (table_diffs); frame 0 also card against CPU, with
-     the count of qcost entries that differ; then at frame 0 (768x512,
-     speed 6): the program per frame device-only (CUDA event pairs behind
+     and 4, a 10-bit and a 12-bit 768x512 plane, a 4032x3024 plane and a
+     72x100 one (MIN_PELS lowered); satd/delta torch.equal, dist/rate
+     within the CPU test's tolerance (table_diffs); frame 0 also card
+     against CPU, with the count of qcost entries that differ, and under
+     torch.set_float32_matmul_precision("high") (fault p: the kernels run,
+     tables equal to those under "highest", no plain program); the
+     kernels' SASS counts (tools/rd_times.sass_counts); then at frame 0
+     (768x512, speed 6): the program per frame device-only (CUDA event pairs behind
      a stream sleep), each launch by table group device-only, the plain
      versions on the card per group and per frame, the call, against
      the bound of the work the function needs (rd_work: int32 ops over
@@ -103,8 +106,8 @@ Phases, each printed as it runs; any failure ends the run non-zero:
      speed=6) with the default codec (spec AV1), counting the RD
      program's runs on the card (one per frame), the RD kernels'
      launches (rd_satd 3 and rd_quant 4 a frame) and the plain program's
-     runs on the card (none); the RD program alone for the 8 frames, for
-     the RD/host split;
+     runs on the card (none), the bytes beside the first RD kernels' 228,654; the RD
+     program alone for the 8 frames, for the RD/host split;
   9. conformance and round trip: the card's files decoded by the port's
      decode equal the shared spec decoder's output; against the same
      frames encoded on the CPU with the RD program off (numpy planner),
@@ -1110,24 +1113,40 @@ def rd_plane(shape, bd: int, seed: int) -> np.ndarray:
 
 def rd_cases(luma: np.ndarray) -> list:
     """Phase 7's (name, plane, speed, bd): the main path's frame at speeds 6
-    and 4, a 10-bit 768x512 plane, a 4032x3024 plane, and 72x100 (an odd
-    grid, under MIN_PELS: run with it lowered)."""
+    and 4, a 10-bit and a 12-bit 768x512 plane, a 4032x3024 plane, and
+    72x100 (an odd grid, under MIN_PELS: run with it lowered)."""
     return [
         (f"{W}x{H} s{SPEED} 8-bit (frame 0)", luma, SPEED, 8),
         (f"{W}x{H} s4 8-bit (frame 0)", luma, 4, 8),
         (f"{W}x{H} s{SPEED} 10-bit", rd_plane((H, W), 10, 10), SPEED, 10),
+        (f"{W}x{H} s{SPEED} 12-bit", rd_plane((H, W), 12, 14), SPEED, 12),
         (f"{PHOTO_W}x{PHOTO_H} s{SPEED} 8-bit", rd_plane((PHOTO_H, PHOTO_W), 8, 12), SPEED, 8),
         ("100x72 s4 8-bit, MIN_PELS lowered", rd_plane((72, 100), 8, 72), 4, 8),
     ]
 
 
+def rd_sass() -> dict:
+    """Per template instance of the RD kernels, the SASS counts of
+    tools/rd_times.py (shared loads, shuffles, runtime divisions, FMAs)."""
+    import importlib.util
+
+    from libavif_tpu_torch.ops import _build
+
+    spec = importlib.util.spec_from_file_location("rd_times", pathlib.Path(__file__).parent / "tools" / "rd_times.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool.sass_counts(_build._library_path(), str(pathlib.Path(_build._nvcc()).with_name("cuobjdump")))
+
+
 def check_rd_tables(rdsearch_device, luma, qindex, dev, smi) -> dict:
     """Phase 7: the RD kernels (csrc/rd_costs.cu) against their plain
     versions on the card, on rd_cases: satd/delta torch.equal, dist/rate
-    by table_diffs; the main path's frame also against the CPU; then, at
-    the main path's frame, the program per frame device-only, each launch
-    by table group, the plain versions on the card, the call, against the
-    bound. Returns the kernels line's numbers of both kernels."""
+    by table_diffs; the main path's frame also against the CPU, and under
+    a TF32 matmul precision against itself (fault p); then the kernels'
+    SASS counts and, at the main path's frame, the program per frame
+    device-only, each launch by table group, the plain versions on the
+    card, the call, against the bound. Returns the kernels line's numbers
+    of both kernels."""
     errs = {"rd_satd": 0.0, "rd_quant": 0.0}
     worst_rel = 0.0
     for name, plane, speed, bd in rd_cases(luma):
@@ -1167,6 +1186,22 @@ def check_rd_tables(rdsearch_device, luma, qindex, dev, smi) -> dict:
     print(f"[rd] {W}x{H} s{SPEED} q{qindex}: satd/delta equal card vs CPU (torch.equal); "
           f"dist/rate {off} of {total} outside rtol, max rel diff {worst:.3e}; "
           f"qcost entries differing {qdiff} of {qtotal}", flush=True)
+    # fault p: under TF32 matmuls the card runs the kernels, which run no matrix product
+    previous = torch.get_float32_matmul_precision()
+    before = rdsearch_device._Program.plain.runs["cuda"]
+    torch.set_float32_matmul_precision("high")
+    try:
+        tf32 = rdsearch_device.dispatch_plan_costs(luma, qindex, SPEED, 8, dev).flat()
+    finally:
+        torch.set_float32_matmul_precision(previous)
+    if not torch.equal(torch.from_numpy(tf32), torch.from_numpy(card.flat())):
+        raise AssertionError("RD tables under matmul precision 'high' differ from those under 'highest'")
+    if rdsearch_device._Program.plain.runs["cuda"] != before:
+        raise AssertionError("the plain RD program ran on the card under matmul precision 'high'")
+    print(f"[rd] {W}x{H} s{SPEED} under torch.set_float32_matmul_precision('high') (fault p): the kernels ran, "
+          f"tables equal to those under 'highest' (torch.equal), no plain program on the card", flush=True)
+    for name, counts in rd_sass().items():
+        print(f"[rd] SASS {name}: " + ", ".join(f"{k} {v}" for k, v in counts.items()), flush=True)
 
     lam_x16, qs, rq, _ = rdsearch_device.program_args(prog, qindex)
     src = torch.from_numpy(luma).to(dev)
@@ -2433,7 +2468,8 @@ def main() -> int:
     print(f"[spec] {BATCH} x {W}x{H} q{QUALITY} s{SPEED} default codec: {spec_s:.3f} s, "
           f"{BATCH * W * H / 1e6 / spec_s:.4f} MP/s, RD program runs on cuda {spec_runs} (rd_satd launches "
           f"{rd_launches[0]}, rd_quant launches {rd_launches[1]}, plain programs on cuda {plain_runs['cuda']}), "
-          f"K1 launches {spec_k1}, {sum(map(len, spec_files))} bytes; RD program alone for the "
+          f"K1 launches {spec_k1}, {sum(map(len, spec_files))} bytes (228,654 with the first RD kernels); RD program "
+          f"alone for the "
           f"{BATCH} frames {rd_s:.3f} s (host encode about {spec_s - rd_s:.3f} s); on {smi}",
           flush=True)
 

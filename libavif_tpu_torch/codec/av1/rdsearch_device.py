@@ -16,7 +16,8 @@ model). Everything is packed into one float32 vector in the reference's
 layout; the partition/depth dynamic program stays on the host.
 
 ``_Program.__call__`` takes a plane on the card through the kernels of
-``csrc/rd_costs.cu``, written straight into the packed vector:
+``csrc/rd_costs.cu`` (one check of the plane, the ctypes arguments
+cached on the program), written straight into the packed vector:
 ``rd_satd`` (``avt_rd_satd``: one launch per searched block size, the
 satd and delta rows) and ``rd_quant`` (``avt_rd_quant``: one launch per
 transform size, the dist and rate rows), 3 + 4 launches a frame at speed
@@ -24,7 +25,10 @@ transform size, the dist and rate rows), 3 + 4 launches a frame at speed
 the CPU takes the plain version, ``_Program.plain``: the reference's
 formulation (Paeth directly, every other mode as ``floor(ext1 @ G)`` with
 a fixed matrix per mode, Kronecker-product Hadamard and DCT up to 8x8),
-whose runs ``_Program.plain.runs`` counts by device type.
+whose runs ``_Program.plain.runs`` counts by device type. Only the plain
+version runs matrix products, so only it needs
+``torch.get_float32_matmul_precision() == "highest"`` and raises
+otherwise; the kernels run under any setting (reference fault p).
 
 Numerics: the predictions and the SATD tables are exact integers. In the
 plain version the matrix entries are multiples of 1/512 and the Hadamard
@@ -33,9 +37,12 @@ provided the matrix products run in full fp32. The kernels compute the
 same integers by formula: every column of G is the formula's integer
 weights over 2^k plus the rounding bias, so ``floor(ext1 @ G)`` is the
 formula's ``(sum + bias) >> k``; the directional columns are two taps
-that the host derives from the same ``_dir_index_tables`` (``_dir_taps``,
-``_kernel_table``), and the Hadamard runs as integer butterflies. So satd
-and delta are equal on every route. The distortion and rate sums are fp32
+that the host derives from the same ``_dir_index_tables`` (``_dir_taps``)
+and hands the kernels as neighbouring pairs of the block's edge with
+their weights (``_edge_taps``, ``_kernel_table``), and the Hadamard runs as
+integer butterflies. So satd and delta are equal on every route. The
+kernels skip the variants whose SATD another gives (``dir_src``; the V
+and H deltas below). The distortion and rate sums are fp32
 and differ from the reference's, and between the kernels and the plain
 version, in the last bits (the kernels keep the plain version's rounding
 per coefficient but sum in another order); a flip near a rounding
@@ -86,6 +93,7 @@ __all__ = ["plan_costs_device", "dispatch_plan_costs", "materialize_plan_costs",
 MIN_PELS = 131072
 
 _DIR_DELTAS = (-3, -2, -1, 1, 2, 3)
+_DELTAS = 1 + len(_DIR_DELTAS)  # variants a directional mode: delta 0 first
 # largest transform whose 2-D DCT runs as one Kronecker-product matmul
 _KRON_MAX = 8
 
@@ -234,20 +242,59 @@ _KINDS = {I.DC_PRED: 0, I.V_PRED: 1, I.H_PRED: 2, I.SMOOTH_PRED: 3, I.SMOOTH_V_P
 _DIR = 7
 
 
+def _edge_index(col, px: int) -> np.ndarray:
+    """The index in the kernels' edge array Z of ext1 column col. Z runs
+    along the block's edge, [left(2px) reversed, corner, above(2px)], with
+    its two ends repeated: Z[2px + 1] is the corner, Z[2px + 1 + c] the
+    above column c, Z[4px + 1 - c] the left column c (c > 2px), and Z[0],
+    Z[4px + 2] repeat Z[1], Z[4px + 1]."""
+    col = np.asarray(col)
+    return np.where(col == 0, 2 * px + 1, np.where(col <= 2 * px, 2 * px + 1 + col, 4 * px + 1 - col))
+
+
+def _edge_taps(px: int, r0, r1, s) -> np.ndarray:
+    """Directional taps (ext1 columns r0, r1, the weight s of r1 in 1/32)
+    as the kernels' words: zi | w_lo << 16 | w_hi << 24, the prediction
+    (Z[zi] * w_lo + Z[zi + 1] * w_hi + 16) >> 5. Two taps are always
+    neighbours on the edge (or one sample twice), so one 32-bit word of
+    the packed pairs Z[zi] | Z[zi + 1] << 16 holds both."""
+    z0, z1 = _edge_index(r0, px), _edge_index(r1, px)
+    s = np.asarray(s)
+    if (np.abs(z1 - z0) > 1).any():
+        raise ValueError("directional taps that are not neighbours on the edge")
+    up, down = z1 == z0 + 1, z1 == z0 - 1
+    zi = np.where(down, z1, z0)
+    w_lo = np.where(up, 32 - s, np.where(down, s, 32))
+    w_hi = np.where(up, s, np.where(down, 32 - s, 0))
+    return (zi | w_lo << 16 | w_hi << 24).astype(np.uint32).view(np.int32)
+
+
+def _tile_order(px: int) -> np.ndarray:
+    """The raster positions of a px x px block in the order of the kernels'
+    tap words: position k of its 8x8 tile first, the tile second (k * T +
+    t, T tiles a block), so the lanes that hold one tile each of a block
+    read neighbouring words; raster order below 8."""
+    if px < 8:
+        return np.arange(px * px)
+    tw = px // 8
+    k, t = np.divmod(np.arange(px * px), tw * tw)
+    return ((t // tw) * 8 + k // 8) * px + (t % tw) * 8 + k % 8
+
+
 def _kernel_table(px: int, variants: tuple) -> np.ndarray:
     """The kernels' int32 table of one block size: a word per variant
     (its kind | the index of its taps << 4), the smooth weights of px, then
-    px*px tap words per directional variant (r0 | r1 << 9 | s << 18, from
-    ``_dir_taps``)."""
+    px*px tap words per directional variant (``_edge_taps`` of
+    ``_dir_taps``, in ``_tile_order``)."""
     desc, taps = [], []
+    order = _tile_order(px)
     for mode, angle in variants:
         if mode in _KINDS:
             desc.append(_KINDS[mode])
             continue
-        r0, r1, s = _dir_taps(mode, px, angle)
         desc.append(_DIR | len(taps) << 4)
-        taps.append(r0 | r1 << 9 | s << 18)
-    return np.concatenate([desc, I._sm_weights()[px], *taps]).astype(np.int32)
+        taps.append(_edge_taps(px, *_dir_taps(mode, px, angle))[order])
+    return np.concatenate([np.asarray(desc, np.int32), I._sm_weights()[px].astype(np.int32), *taps]).astype(np.int32)
 
 
 # ------------------------------------------------------------ the program
@@ -265,11 +312,31 @@ class _Bank:
     G: torch.Tensor | None  # (4px+2, len(linear) * px * px) float32
 
 
+def _dir_sources(table: np.ndarray, n_modes: int, n_dir: int, px: int) -> list:
+    """Per directional mode of a block size's kernel table, the candidate
+    variant whose prediction its delta 0 repeats (the same kind and, for a
+    directional kind, the same tap words), or -1. ``avt_rd_satd`` takes
+    that candidate's SATD for the delta 0 instead of computing it again."""
+    n_var = n_modes + _DELTAS * n_dir
+
+    def words(v):
+        desc = int(table[v])
+        if desc & 15 != _DIR:
+            return (desc & 15,)
+        lo = n_var + px + (desc >> 4) * px * px
+        return (_DIR, table[lo : lo + px * px].tobytes())
+
+    cands = {}
+    for v in range(n_modes):
+        cands.setdefault(words(v), v)
+    return [cands.get(words(n_modes + _DELTAS * d), -1) for d in range(n_dir)]
+
+
 class _SatdArgs(ctypes.Structure):
     """``RdSatdArgs`` of csrc/rd_costs.cu."""
 
     _fields_ = [(name, ctypes.c_int) for name in ("H", "W", "rows", "cols", "bd", "n_modes", "n_dir", "n_var")] + [
-        ("bits", ctypes.c_int * 16)]
+        ("bits", ctypes.c_int * 16), ("dir_src", ctypes.c_int * 16)]
 
 
 class _QuantArgs(ctypes.Structure):
@@ -350,8 +417,15 @@ class _Program:
         variants = {px: self.mode_variants + (self.delta_variants if ("delta", px) in self.offsets else ())
                     for px in all_px}
         self.n_var = {px: len(v) for px, v in variants.items()}
-        self.tables = {px: torch.from_numpy(_kernel_table(px, v)).to(device) for px, v in variants.items()}
+        tables = {px: _kernel_table(px, v) for px, v in variants.items()}
+        self.tables = {px: torch.from_numpy(t).to(device) for px, t in tables.items()}
         self.basis = {t: m.contiguous() for t, m in {**self.kron_dct, **self.dct_m}.items()}
+        n_dir = len(dir_modes)
+        self.dir_src = {px: _dir_sources(tables[px], len(cand_modes), n_dir, px) if ("delta", px) in self.offsets
+                        else [] for px in sizes}
+        # per qindex, program_args; per (kind, key, call arguments), the
+        # kernel's ctypes argument struct
+        self.call_args, self.launch_args = {}, {}
 
     @functools.cached_property
     def mode_banks(self) -> dict:
@@ -383,11 +457,14 @@ class _Program:
         if src.device.type == "cpu":
             return self.plain(src, lam_x16, qs, rq)
         out = torch.empty(self.meta["total"], dtype=torch.float32, device=src.device)
-        for kind, key, *_ in self.meta["layout"]:
-            if kind == "satd":
-                rd_satd(self, src, out, key, lam_x16)
-            elif kind == "dist":
-                rd_quant(self, src, out, key, qs[key], rq[key])
+        stream = _launch_checks("the RD program", self, src, out, *self.tables.values(), *self.basis.values())
+        lib = _build.load()
+        with _build.on_device(src.device):
+            for kind, key, *_ in self.meta["layout"]:
+                if kind == "satd":
+                    _launch_satd(lib, self, src, out, key, _satd_args(self, key, lam_x16), stream)
+                elif kind == "dist":
+                    _launch_quant(lib, self, src, out, key, _quant_args(self, key, qs[key], rq[key]), stream)
         return out
 
     # -- the plain version: the reference's formulation, piece by piece
@@ -522,7 +599,14 @@ class _Program:
     def plain(self, src: torch.Tensor, lam_x16: int, qs: dict, rq: dict) -> torch.Tensor:
         """The plain version of the program: src (H, W) int32 on any device
         -> the packed float32 vector, through eager PyTorch ops on src's
-        device."""
+        device. Its matrix products need full fp32 (TF32 breaks the exact
+        integer tables), so it raises under any other matmul precision; the
+        kernels run no matrix product and take any."""
+        if torch.get_float32_matmul_precision() != "highest":
+            raise RuntimeError(
+                "the RD pre-pass's plain version needs full fp32 matrix products (TF32 breaks its exact "
+                "integer tables): torch.set_float32_matmul_precision('highest')"
+            )
         _Program.plain.runs[src.device.type] += 1
         pieces = {}
         for kind, key, *_ in self.meta["layout"]:
@@ -553,30 +637,76 @@ def _launch_checks(what: str, prog: _Program, src: torch.Tensor, out: torch.Tens
     return torch.cuda.current_stream(src.device).cuda_stream
 
 
+def _satd_args(prog: _Program, px: int, lam_x16: int) -> _SatdArgs:
+    """``RdSatdArgs`` of block size px at lam_x16, built once a program."""
+    key = ("satd", px, lam_x16, prog.n_var.get(px))
+    args = prog.launch_args.get(key)
+    if args is None:
+        if ("satd", px) not in prog.offsets or px not in (8, 16, 32, 64):
+            raise ValueError(f"rd_satd: the program has no satd table of block size {px}")
+        rows, cols = prog.meta["grid"][px]
+        dir_src = prog.dir_src[px]
+        args = _SatdArgs(H=prog.H, W=prog.W, rows=rows, cols=cols, bd=prog.bd,
+                         n_modes=len(prog.meta["cand_modes"]), n_dir=len(dir_src), n_var=prog.n_var[px],
+                         bits=(ctypes.c_int * 16)(*[(lam_x16 * b) >> 4 for b in prog.mode_bits[px]]),
+                         dir_src=(ctypes.c_int * 16)(*dir_src))
+        prog.launch_args[key] = args
+    return args
+
+
+def _quant_args(prog: _Program, txs: int, qs: np.ndarray, rq: np.ndarray) -> _QuantArgs:
+    """``RdQuantArgs`` of transform size txs at the steps qs and their
+    reciprocals rq (``_quant_ctx``: the DC entry, every other entry one AC
+    value), built once a program and steps."""
+    qs, rq = np.asarray(qs, np.float32).reshape(-1), np.asarray(rq, np.float32).reshape(-1)
+    key = ("quant", txs, qs.tobytes(), rq.tobytes(), prog.n_var.get(txs))
+    args = prog.launch_args.get(key)
+    if args is None:
+        if ("dist", txs) not in prog.offsets or txs not in (4, 8, 16, 32, 64):
+            raise ValueError(f"rd_quant: the program has no dist table of transform size {txs}")
+        if (qs.size != min(txs, 32) ** 2 or rq.shape != qs.shape or (qs[1:] != qs[1]).any()
+                or (rq[1:] != rq[1]).any()):
+            raise ValueError("rd_quant takes a DC step and one AC step per transform size, as _quant_ctx gives them")
+        rows, cols = prog.meta["grid"][txs]
+        args = _QuantArgs(H=prog.H, W=prog.W, rows=rows, cols=cols, bd=prog.bd,
+                          n_modes=len(prog.meta["cand_modes"]), n_var=prog.n_var[txs],
+                          qs_dc=qs[0], qs_ac=qs[1], rq_dc=rq[0], rq_ac=rq[1],
+                          nz=_COEF_NZ_X16, mag=_COEF_MAG_X16, txb=_TXB_RATE_X16)
+        prog.launch_args[key] = args
+    return args
+
+
+def _launch_satd(lib, prog: _Program, src: torch.Tensor, out: torch.Tensor, px: int, args: _SatdArgs,
+                 stream: int) -> None:
+    base = out.data_ptr()
+    delta = base + 4 * prog.offsets["delta", px] if args.n_dir else None
+    rc = lib.avt_rd_satd(ctypes.byref(args), px, src.data_ptr(), prog.tables[px].data_ptr(),
+                         base + 4 * prog.offsets["satd", px], delta, stream)
+    if rc != 0:
+        raise RuntimeError(f"rd_satd launch failed: CUDA error {rc}")
+    rd_satd.launches += 1
+
+
+def _launch_quant(lib, prog: _Program, src: torch.Tensor, out: torch.Tensor, txs: int, args: _QuantArgs,
+                  stream: int) -> None:
+    base = out.data_ptr()
+    rc = lib.avt_rd_quant(ctypes.byref(args), txs, src.data_ptr(), prog.tables[txs].data_ptr(),
+                          prog.basis[txs].data_ptr(), base + 4 * prog.offsets["dist", txs],
+                          base + 4 * prog.offsets["rate", txs], stream)
+    if rc != 0:
+        raise RuntimeError(f"rd_quant launch failed: CUDA error {rc}")
+    rd_quant.launches += 1
+
+
 def rd_satd(prog: _Program, src: torch.Tensor, out: torch.Tensor, px: int, lam_x16: int) -> None:
     """One launch of ``avt_rd_satd`` (csrc/rd_costs.cu) on the current
     stream: the satd rows of block size px, and its delta rows where the
     layout has them, written into ``out`` (the packed vector) in place.
     Counted in ``rd_satd.launches``."""
-    if ("satd", px) not in prog.offsets or px not in (8, 16, 32, 64):
-        raise ValueError(f"rd_satd: the program has no satd table of block size {px}")
-    table = prog.tables[px]
-    stream = _launch_checks("rd_satd", prog, src, out, table)
-    rows, cols = prog.meta["grid"][px]
-    n_modes = len(prog.meta["cand_modes"])
-    n_dir = len(prog.meta["dir_modes"]) if ("delta", px) in prog.offsets else 0
-    bits = [(lam_x16 * b) >> 4 for b in prog.mode_bits[px]]
-    args = _SatdArgs(H=prog.H, W=prog.W, rows=rows, cols=cols, bd=prog.bd, n_modes=n_modes, n_dir=n_dir,
-                     n_var=prog.n_var[px], bits=(ctypes.c_int * 16)(*bits))
-    base = out.data_ptr()
-    delta = base + 4 * prog.offsets["delta", px] if n_dir else None
-    lib = _build.load()
+    args = _satd_args(prog, px, lam_x16)
+    stream = _launch_checks("rd_satd", prog, src, out, prog.tables[px])
     with _build.on_device(src.device):
-        rc = lib.avt_rd_satd(ctypes.byref(args), px, src.data_ptr(), table.data_ptr(),
-                             base + 4 * prog.offsets["satd", px], delta, stream)
-    if rc != 0:
-        raise RuntimeError(f"rd_satd launch failed: CUDA error {rc}")
-    rd_satd.launches += 1
+        _launch_satd(_build.load(), prog, src, out, px, args, stream)
 
 
 def rd_quant(prog: _Program, src: torch.Tensor, out: torch.Tensor, txs: int, qs: np.ndarray,
@@ -586,27 +716,10 @@ def rd_quant(prog: _Program, src: torch.Tensor, out: torch.Tensor, txs: int, qs:
     ``out`` in place. qs, rq: the quantizer steps and their reciprocals
     (``_quant_ctx``: the DC entry, every other entry one AC value).
     Counted in ``rd_quant.launches``."""
-    if ("dist", txs) not in prog.offsets or txs not in (4, 8, 16, 32, 64):
-        raise ValueError(f"rd_quant: the program has no dist table of transform size {txs}")
-    qs, rq = np.asarray(qs, np.float32).reshape(-1), np.asarray(rq, np.float32).reshape(-1)
-    if qs.size != min(txs, 32) ** 2 or rq.shape != qs.shape or (qs[1:] != qs[1]).any() or (rq[1:] != rq[1]).any():
-        raise ValueError("rd_quant takes a DC step and one AC step per transform size, as _quant_ctx gives them")
-    table, basis = prog.tables[txs], prog.basis[txs]
-    stream = _launch_checks("rd_quant", prog, src, out, table, basis)
-    rows, cols = prog.meta["grid"][txs]
-    n_modes = len(prog.meta["cand_modes"])
-    args = _QuantArgs(H=prog.H, W=prog.W, rows=rows, cols=cols, bd=prog.bd, n_modes=n_modes,
-                      n_var=prog.n_var[txs],
-                      qs_dc=qs[0], qs_ac=qs[1], rq_dc=rq[0], rq_ac=rq[1],
-                      nz=_COEF_NZ_X16, mag=_COEF_MAG_X16, txb=_TXB_RATE_X16)
-    base = out.data_ptr()
-    lib = _build.load()
+    args = _quant_args(prog, txs, qs, rq)
+    stream = _launch_checks("rd_quant", prog, src, out, prog.tables[txs], prog.basis[txs])
     with _build.on_device(src.device):
-        rc = lib.avt_rd_quant(ctypes.byref(args), txs, src.data_ptr(), table.data_ptr(), basis.data_ptr(),
-                              base + 4 * prog.offsets["dist", txs], base + 4 * prog.offsets["rate", txs], stream)
-    if rc != 0:
-        raise RuntimeError(f"rd_quant launch failed: CUDA error {rc}")
-    rd_quant.launches += 1
+        _launch_quant(_build.load(), prog, src, out, txs, args, stream)
 
 
 rd_satd.launches = 0
@@ -640,7 +753,10 @@ class PlanCostsHandle:
 def program_args(prog: _Program, qindex: int) -> tuple:
     """The per-call arguments of a program at qindex: (lam_x16, qs, rq,
     lam_sse_x16), qs and rq per transform size as ``_quant_ctx`` gives
-    them."""
+    them; built once a program and qindex."""
+    cached = prog.call_args.get(qindex)
+    if cached is not None:
+        return cached
     bd = prog.bd
     lam_x16 = max(1, T.ac_q(qindex, bd) >> 1)
     dcq, acq = T.dc_q(qindex, bd), T.ac_q(qindex, bd)
@@ -649,7 +765,8 @@ def program_args(prog: _Program, qindex: int) -> tuple:
     qs, rq = {}, {}
     for txs in prog.meta["txs_cfg"]:
         _, _, qs[txs], rq[txs] = _quant_ctx(txs, dcq, acq)
-    return lam_x16, qs, rq, lam_sse_x16
+    prog.call_args[qindex] = lam_x16, qs, rq, lam_sse_x16
+    return prog.call_args[qindex]
 
 
 def dispatch_plan_costs(src: np.ndarray, qindex: int, speed: int, bd: int, device=None):
@@ -662,11 +779,6 @@ def dispatch_plan_costs(src: np.ndarray, qindex: int, speed: int, bd: int, devic
     if H < 8 or W < 8 or H * W < MIN_PELS:
         return None
     device = torch.device(device) if device is not None else default_device()
-    if torch.get_float32_matmul_precision() != "highest":
-        raise RuntimeError(
-            "the RD pre-pass needs full fp32 matrix products (TF32 breaks its exact "
-            "integer tables): torch.set_float32_matmul_precision('highest')"
-        )
     prog = _program(H, W, speed, bd, str(device))
     lam_x16, qs, rq, lam_sse_x16 = program_args(prog, qindex)
     out = prog(upload(np.ascontiguousarray(src, dtype=np.int32), device), lam_x16, qs, rq)

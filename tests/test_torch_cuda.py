@@ -430,18 +430,11 @@ def _rd_groups(prog):
     return sum(k == "satd" for k, *_ in layout), sum(k == "dist" for k, *_ in layout)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("bd", [8, 10])
-@pytest.mark.parametrize("speed", [4, 6])
-@pytest.mark.parametrize("shape", [(64, 96), (72, 100), (512, 768)], ids=["64x96", "72x100-odd-grid", "768x512"])
-def test_rd_kernels_equal_plain_version(cuda, monkeypatch, shape, speed, bd):
-    """dispatch_plan_costs on the card launches rd_satd once per searched
-    block size and rd_quant once per transform size, and runs no plain
+def _rd_tables_equal_plain(cuda, shape, speed, bd, src):
+    """dispatch_plan_costs on the card: one launch per table group, no plain
     program; its tables against the plain version on the card: satd and
     delta equal, dist and rate with the tolerance of
     tests/test_torch_rdsearch_device.py."""
-    monkeypatch.setattr(rdsearch_device, "MIN_PELS", 1)
-    src = _rd_plane(shape, bd, seed=shape[1] + speed + bd)
     prog = rdsearch_device._program(*shape, speed, bd, str(cuda))
     before, plain = _rd_launches(), rdsearch_device._Program.plain.runs["cuda"]
     card = rdsearch_device.dispatch_plan_costs(src, 120, speed, bd, cuda)
@@ -461,6 +454,54 @@ def test_rd_kernels_equal_plain_version(cuda, monkeypatch, shape, speed, bd):
         off += int((np.abs(got[lo:hi] - want[lo:hi]) > rtol * np.abs(want[lo:hi])).sum())
         total += hi - lo
     assert off <= total // 1000
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bd", [8, 10, 12])
+@pytest.mark.parametrize("speed", [4, 6])
+@pytest.mark.parametrize("shape", [(64, 96), (72, 100), (512, 768)], ids=["64x96", "72x100-odd-grid", "768x512"])
+def test_rd_kernels_equal_plain_version(cuda, monkeypatch, shape, speed, bd):
+    """Every block size (8-64) and transform size (4-64) at speed 4, the
+    main path's at speed 6; 8, 10 and 12 bits; ragged edges at 72x100."""
+    monkeypatch.setattr(rdsearch_device, "MIN_PELS", 1)
+    _rd_tables_equal_plain(cuda, shape, speed, bd, _rd_plane(shape, bd, seed=shape[1] + speed + bd))
+
+
+@pytest.mark.cuda
+def test_rd_kernels_equal_plain_version_at_4032x3024(cuda):
+    """A 12.2 MP frame: grids wider than one wave of CTAs."""
+    _rd_tables_equal_plain(cuda, (3024, 4032), 6, 8, _rd_plane((3024, 4032), 8, seed=12))
+
+
+@pytest.mark.cuda
+def test_rd_kernels_fault_p_run_under_tf32(cuda, monkeypatch):
+    """Reference fault p: under torch.set_float32_matmul_precision("high")
+    the card runs the kernels (no matrix product), with tables equal to
+    those under "highest"; a spec still through api.encode_batch and an
+    inter GOP encode, and no plain program runs on the card."""
+    src = _rd_plane((512, 768), 8, seed=16)
+    want = rdsearch_device.dispatch_plan_costs(src, 120, 6, 8, cuda).flat()
+    runs, plain = rdsearch_device.dispatch_plan_costs.runs, rdsearch_device._Program.plain.runs
+    before, plain_before, launches = runs.copy(), plain.copy(), _rd_launches()
+    img = Image(512, 256, 8, PixelFormat.YUV420)
+    img.allocate_planes("yuv")
+    for p in img.yuv_planes:
+        p[:] = _rd_plane(p.shape, 8, seed=p.shape[1]).astype(np.uint8)
+    previous = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        got = rdsearch_device.dispatch_plan_costs(src, 120, 6, 8, cuda).flat()
+        [still] = api.encode_batch([img], quality=75, speed=6, device=cuda)
+        monkeypatch.setattr(rdsearch_device, "MIN_PELS", 1)
+        gop = _animate(_pan(3, 128, 96), cuda, quality=70)
+    finally:
+        torch.set_float32_matmul_precision(previous)
+    assert torch.equal(torch.from_numpy(got), torch.from_numpy(want))
+    assert (runs - before)["cuda"] == 5 and plain - plain_before == {}  # the table, the still, the GOP's 3 frames
+    assert _rd_launches() == (launches[0] + 3 * 5, launches[1] + 4 * 5)
+    assert api.decode(still, device=cuda).yuv_planes[0].shape == (256, 512)
+    assert len(gop) > 0
 
 
 @pytest.mark.cuda

@@ -8,21 +8,33 @@ arithmetic, fed the tables that the wrapper hands the kernels:
 
 - ``avt_rd_satd``: the border read with clamped coordinates, every
   variant's prediction by its formula or its two host-built taps, the
-  residual, the 8x8 Hadamard as integer butterflies (rows in registers,
-  columns across eight lanes), the sums, ``// 16`` plus the lambda-scaled
-  bits, the first argmin over the deltas. Integers throughout, so the
-  model must equal the plain version exactly.
+  residual, the 8x8 Hadamard of a whole tile in one lane's registers (the
+  row butterflies, two column stages, the last column stage folded into
+  the absolute sum as 2 max(|p|, |q|)), the tiles of a block summed, ``//
+  16`` plus the lambda-scaled bits, the first argmin over the deltas.
+  Only the variants the kernel computes are modelled: every candidate
+  mode, and the delta variants no other variant repeats (the delta 0 of
+  a directional mode that is a candidate takes that candidate's sum,
+  ``dir_src``; a delta variant of a kind that is not directional takes its
+  delta 0's, reference fault o). Integers throughout, so the model must
+  equal the plain version exactly.
 - ``avt_rd_quant``: the DCT's products accumulated by FMA (emulated here
-  as an exact fp64 product plus one add, rounded to fp32), the quantizer
-  and the bit model rounded per operation as the kernel's ``__f*_rn``,
-  and the sums in the kernel's order (a thread's coefficients in turn,
-  then halves within each warp, then halves over the warps). It matches
-  the plain ``quant_cost`` within the tolerance stated in
-  ``tests/test_torch_rdsearch_device.py``: rtol 1e-5 (1e-4 for the dist
-  of 64x64 transforms), at most 1 entry in 1000 outside it.
+  as an exact fp64 product plus one add, rounded to fp32) in the kernel's
+  register blocking (16 coefficients a pass at txs <= 8; 4x4 tiles of
+  M r and of (M r) M^T, M from M^T, t1 transposed, at txs >= 16), which
+  keeps each coefficient's FMA chain and so equals the first design's
+  model bit for bit; the quantizer and the bit model rounded per
+  operation as the kernel's ``__f*_rn``; the sums in the kernel's order (a
+  lane's block coefficient by coefficient at txs <= 8; a thread's 4x4 tile
+  in turn, then halves within each warp and over the team's warps, at
+  txs >= 16). It matches the plain ``quant_cost`` within the tolerance
+  stated in ``tests/test_torch_rdsearch_device.py``: rtol 1e-5 (1e-4 for
+  the dist of 64x64 transforms), at most 1 entry in 1000 outside it.
 
-Also: the ctypes structs against the source's, the wrappers' errors, and
-reference fault o (the V and H angle deltas). The card tests
+Also: the ctypes structs against the source's, the shared-memory layouts
+of the kernels' shapes, the wrappers' errors, the plain version's refusal
+of TF32 (reference fault p: only the plain version runs matrix products),
+and reference fault o (the V and H angle deltas). The card tests
 (``tests/test_torch_cuda.py -k rd_kernels``) hold the kernels themselves to the
 plain version on the card.
 """
@@ -85,7 +97,9 @@ def model_borders(src, px, bd):
 
 def model_predict(table, n_var, px, bd, ext):
     """(n_var, n, px, px): each variant of the kernel's table by the
-    kernel's integer formulas (``predict`` in rd_costs.cu)."""
+    kernel's integer formulas (``predict`` in rd_costs.cu); a directional
+    sample from its word zi | w_lo << 16 | w_hi << 24 over the edge array
+    Z = [left(2px) reversed, corner, above(2px)] with its ends repeated."""
     maxv = (1 << bd) - 1
     ext = ext.astype(np.int64)
     smw = table[n_var : n_var + px].astype(np.int64)
@@ -95,6 +109,9 @@ def model_predict(table, n_var, px, bd, ext):
     l = ext[:, 2 * px + 1 : 3 * px + 1, None]
     c = ext[:, :1, None]
     below, right = ext[:, 3 * px, None, None], ext[:, px, None, None]
+    # the edge array Z: [left reversed, corner, above], its ends repeated
+    edge = ext[:, [4 * px] + [4 * px + 1 - j for j in range(1, 2 * px + 1)] + [0]
+               + [j - 2 * px - 1 for j in range(2 * px + 2, 4 * px + 2)] + [2 * px]]
     s = ext[:, 1 : 1 + px].sum(1) + ext[:, 2 * px + 1 : 3 * px + 1].sum(1)
     dc = np.clip((s + px) >> (2 * px).bit_length() - 1, 0, maxv)[:, None, None]
     shape = (ext.shape[0], px, px)
@@ -119,17 +136,39 @@ def model_predict(table, n_var, px, bd, ext):
             p = np.where((pa <= pl) & (pa <= pc), a, np.where(pl <= pc, l, c))
         else:
             assert desc & 15 == rdd._DIR
-            t = taps[(desc >> 4) * px * px :][: px * px].reshape(px, px)
-            c0, c1, w = t & 511, (t >> 9) & 511, t >> 18
-            p = np.clip((ext[:, c0] * (32 - w) + ext[:, c1] * w + 16) >> 5, 0, maxv)
+            t = np.empty(px * px, np.int64)
+            t[rdd._tile_order(px)] = taps[(desc >> 4) * px * px :][: px * px]
+            t = t.reshape(px, px) & 0xFFFFFFFF
+            zi, w_lo, w_hi = t & 0xFFFF, (t >> 16) & 255, t >> 24
+            p = np.minimum((edge[:, zi] * w_lo + edge[:, zi + 1] * w_hi + 16) >> 5, maxv)
         out.append(np.broadcast_to(p, shape))
     return np.stack(out)
 
 
 def model_hadamard_sums(res):
     """(..., px, px) int -> (...,) sum of |8x8 Hadamard| over the tiles, as
-    the kernel: each tile row's butterflies in a lane's registers, then
-    the column butterflies between lanes row and row ^ s."""
+    the kernel: each tile in one lane's registers, the row butterflies,
+    column stages 1 and 2, then stage 4 folded into the absolute sum
+    (|p + q| + |p - q| = 2 max(|p|, |q|)); the tiles of a block summed."""
+    *lead, px, _ = res.shape
+    r = res.reshape(*lead, px // 8, 8, px // 8, 8).swapaxes(-3, -2).astype(np.int64)
+    for s in (1, 2, 4):
+        lo = [k for k in range(8) if not k & s]
+        hi = [k | s for k in lo]
+        p, q = r[..., lo], r[..., hi]
+        r[..., lo], r[..., hi] = p + q, p - q
+    for s in (1, 2):
+        lo = [k for k in range(8) if not k & s]
+        hi = [k | s for k in lo]
+        p, q = r[..., lo, :], r[..., hi, :]
+        r[..., lo, :], r[..., hi, :] = p + q, p - q
+    tiles = 2 * np.maximum(np.abs(r[..., :4, :]), np.abs(r[..., 4:, :])).sum(axis=(-2, -1))
+    return tiles.sum(axis=(-2, -1))
+
+
+def model_first_hadamard_sums(res):
+    """The first design's order: each tile row's butterflies in a lane,
+    the column butterflies between lanes row and row ^ s, then |.| summed."""
     *lead, px, _ = res.shape
     r = res.reshape(*lead, px // 8, 8, px // 8, 8).swapaxes(-3, -2).astype(np.int64)
     for s in (1, 2, 4):
@@ -144,8 +183,29 @@ def model_hadamard_sums(res):
     return np.abs(r).sum(axis=(-4, -3, -2, -1))
 
 
+def satd_variants(prog, px):
+    """The table variants avt_rd_satd computes at block size px (its list,
+    in its order), and per variant the one whose sum it takes."""
+    table = prog.tables[px].numpy()
+    n_modes, dir_src = len(prog.meta["cand_modes"]), prog.dir_src[px]
+    computed, source = list(range(n_modes)), {}
+    for d, src in enumerate(dir_src):
+        v0 = n_modes + 7 * d
+        if src >= 0:
+            source[v0] = src
+        else:
+            computed.append(v0)
+        for k in range(1, 7):
+            if table[v0 + k] & 15 == rdd._DIR:
+                computed.append(v0 + k)
+            else:
+                source[v0 + k] = source.get(v0, v0)
+    return computed, source
+
+
 def model_satd_tables(prog, src, lam_x16):
-    """{(kind, px): rows} of avt_rd_satd for every searched block size."""
+    """{(kind, px): rows} of avt_rd_satd for every searched block size,
+    from the variants the kernel computes."""
     meta, out = prog.meta, {}
     nM, nD = len(meta["cand_modes"]), len(meta["dir_modes"])
     for kind, px, *_ in meta["layout"]:
@@ -153,10 +213,17 @@ def model_satd_tables(prog, src, lam_x16):
             continue
         blocks, ext = model_borders(src, px, prog.bd)
         preds = model_predict(prog.tables[px].numpy(), prog.n_var[px], px, prog.bd, ext)
-        sums = model_hadamard_sums(blocks[None].astype(np.int64) - preds) // 16
+        sums = np.full((prog.n_var[px], blocks.shape[0]), -1, np.int64)
+        computed, source = satd_variants(prog, px) if ("delta", px) in prog.offsets else (range(nM), {})
+        for v in computed:
+            sums[v] = model_hadamard_sums(blocks.astype(np.int64) - preds[v])
+        for v, src_v in source.items():
+            sums[v] = sums[src_v]
+        sums //= 16
         bits = np.array([(lam_x16 * b) >> 4 for b in prog.mode_bits[px]])
         out["satd", px] = (sums[:nM] + bits[:, None]).astype(f32).reshape(-1)
         if ("delta", px) in prog.offsets:
+            assert (sums >= 0).all()  # every variant computed or resolved
             dts = np.array((0,) + rdd._DIR_DELTAS, f32)
             out["delta", px] = dts[sums[nM:].reshape(nD, 7, -1).argmin(1)].reshape(-1)
     return out
@@ -175,24 +242,74 @@ def halves(v):
     return v[..., 0]
 
 
-def model_quant(res, txs, qs, rq, basis):
-    """res (n, txs, txs) int -> dist, rate (n,) float32 as avt_rd_quant."""
+def model_first_coefficients(res, txs, basis):
+    """The first design's coefficients (n, txs^2): a thread a coefficient,
+    its dot of length txs^2 (txs <= 8), or t1 = M r then t1 M^T, each
+    sum by FMA in index order."""
     n = res.shape[0]
     r = res.astype(f32)
     n2 = txs * txs
-    if txs <= 8:  # one dot of length txs^2 a coefficient, a thread a coefficient
+    if txs <= 8:
         c = np.zeros((n, n2), f32)
         flat = r.reshape(n, n2)
         for j in range(n2):
             c = fmaf(flat[:, j : j + 1], basis[j][None], c)
-    else:  # t1 = M r, then c = t1 M^T
-        t1 = np.zeros((n, txs, txs), f32)
-        for k in range(txs):
-            t1 = fmaf(basis[None, :, k : k + 1], r[:, k : k + 1, :], t1)
-        c3 = np.zeros((n, txs, txs), f32)
-        for k in range(txs):
-            c3 = fmaf(t1[:, :, k : k + 1], basis[None, None, :, k], c3)
-        c = c3.reshape(n, n2)
+        return c
+    t1 = np.zeros((n, txs, txs), f32)
+    for k in range(txs):
+        t1 = fmaf(basis[None, :, k : k + 1], r[:, k : k + 1, :], t1)
+    c3 = np.zeros((n, txs, txs), f32)
+    for k in range(txs):
+        c3 = fmaf(t1[:, :, k : k + 1], basis[None, None, :, k], c3)
+    return c3.reshape(n, n2)
+
+
+def model_coefficients(res, txs, basis):
+    """The coefficients (n, txs^2) in the kernel's register blocking.
+    txs <= 8: a lane's block, 16 coefficients a pass, the basis row of 16
+    as four float4; each sums j = 0 .. txs^2 - 1 by FMA from 0.
+    txs >= 16: a thread's 4x4 tile (rows 4 rg + i, columns 4 cg + j): per
+    k a float4 of M^T[k] (the column k of M) and one of the residual's row
+    k, then t1 stored transposed and per k a float4 of it and of M^T[k]."""
+    n = res.shape[0]
+    r = res.astype(f32)
+    n2 = txs * txs
+    if txs <= 8:
+        flat = r.reshape(n, n2)
+        c = np.zeros((n, n2), f32)
+        for k0 in range(0, n2, 16):
+            acc = np.zeros((n, 16), f32)
+            for j in range(n2):
+                w = np.concatenate([basis[j, k0 + q : k0 + q + 4] for q in range(0, 16, 4)])
+                acc = fmaf(flat[:, j : j + 1], w[None], acc)
+            c[:, k0 : k0 + 16] = acc
+        return c
+    mt = np.ascontiguousarray(basis.T)  # M^T[k][r] = M[r][k]
+    tg = txs // 4
+    t1t = np.zeros((n, txs, txs), f32)  # t1 transposed: t1t[col][r]
+    c = np.zeros((n, txs, txs), f32)
+    for rg in range(tg):
+        for cg in range(tg):
+            acc = np.zeros((n, 4, 4), f32)
+            for k in range(txs):
+                mv, rv = mt[k, 4 * rg : 4 * rg + 4], r[:, k, 4 * cg : 4 * cg + 4]
+                acc = fmaf(mv[None, :, None], rv[:, None, :], acc)
+            t1t[:, 4 * cg : 4 * cg + 4, 4 * rg : 4 * rg + 4] = acc.swapaxes(1, 2)
+    for rg in range(tg):
+        for cg in range(tg):
+            acc = np.zeros((n, 4, 4), f32)
+            for k in range(txs):
+                tv, mv = t1t[:, k, 4 * rg : 4 * rg + 4], mt[k, 4 * cg : 4 * cg + 4]
+                acc = fmaf(tv[:, :, None], mv[None, None, :], acc)
+            c[:, 4 * rg : 4 * rg + 4, 4 * cg : 4 * cg + 4] = acc
+    return c.reshape(n, n2)
+
+
+def model_quant(res, txs, qs, rq, basis):
+    """res (n, txs, txs) int -> dist, rate (n,) float32 as avt_rd_quant."""
+    n = res.shape[0]
+    n2 = txs * txs
+    c = model_coefficients(res, txs, basis)
     a, d = np.divmod(np.arange(n2), txs)
     kept = (a < 32) & (d < 32)
     dcm = np.arange(n2) == 0
@@ -207,13 +324,20 @@ def model_quant(res, txs, qs, rq, basis):
         terms += [c * c, np.where(kept, c * c, zero)]
     sums = []
     for v in terms:
-        if txs <= 8:  # a group of txs^2 threads: halves within each warp, then over the warps
-            sums.append(halves(halves(v.reshape(n, -1, min(n2, 32))) if n2 > 32 else v))
-        else:  # 256 threads, each its coefficients i = t + 256 j in turn
-            part = np.zeros((n, 256), f32)
-            for j in range(n2 // 256):
-                part = part + v[:, 256 * j : 256 * (j + 1)]
-            sums.append(halves(halves(part.reshape(n, 8, 32))))
+        if txs <= 8:  # a lane its block's coefficients in order
+            part = np.zeros(n, f32)
+            for k in range(n2):
+                part = part + v[:, k]
+            sums.append(part)
+            continue
+        # a thread its 4x4 tile, row by row; threads tt = rg * (txs / 4) + cg
+        tg, tt = txs // 4, (txs // 4) ** 2
+        tiles = v.reshape(n, tg, 4, tg, 4).transpose(0, 1, 3, 2, 4).reshape(n, tt, 16)
+        part = np.zeros((n, tt), f32)
+        for e in range(16):
+            part = part + tiles[:, :, e]
+        width = min(tt, 32)  # halves within each warp, then over the team's warps
+        sums.append(halves(halves(part.reshape(n, tt // width, width))))
     dist = sums[0] if txs <= 32 else sums[0] + (sums[3] - sums[4])
     rate = (sums[1] * f32(rdsearch._COEF_NZ_X16) + sums[2] * f32(rdsearch._COEF_MAG_X16)) + f32(
         rdsearch._TXB_RATE_X16)
@@ -260,6 +384,36 @@ def test_predictions_equal_floor_of_ext1_G(px, bd):
         np.testing.assert_array_equal(got[v], want, err_msg=f"mode {mode} angle {angle}")
 
 
+@pytest.mark.parametrize("px", [4, 8, 16, 32, 64])
+def test_edge_taps_are_neighbouring_pairs(px):
+    """Every directional variant's two taps are neighbours on the edge
+    array Z (or one sample twice): the pair word starts at 1 .. 4px + 1,
+    and its weights sum to 32."""
+    for mode in range(I.D45_PRED, I.D67_PRED + 1):  # V and H predict by their own formulas
+        for d in (0,) + rdd._DIR_DELTAS:
+            t = rdd._edge_taps(px, *rdd._dir_taps(mode, px, I.MODE_TO_ANGLE[mode] + 3 * d)).view(np.uint32)
+            zi, w_lo, w_hi = t & 0xFFFF, (t >> 16) & 255, t >> 24
+            assert zi.min() >= 1 and zi.max() <= 4 * px + 1, (mode, d)
+            assert ((w_lo + w_hi) == 32).all(), (mode, d)
+    with pytest.raises(ValueError, match="not neighbours"):
+        rdd._edge_taps(px, np.array([1]), np.array([3]), np.array([5]))
+
+
+@pytest.mark.parametrize("px", [4, 8, 16, 32, 64])
+def test_tile_order_is_the_kernels_index(px):
+    """The tap words' order: the kernels read sample (y, x) at
+    ((y % 8) * 8 + x % 8) * T + (y / 8) * (px / 8) + x / 8 (T tiles a
+    block), raster order below 8."""
+    order = rdd._tile_order(px)
+    yy, xx = np.divmod(np.arange(px * px), px)
+    if px < 8:
+        pos = yy * px + xx
+    else:
+        tw = px // 8
+        pos = ((yy % 8) * 8 + xx % 8) * tw * tw + (yy // 8) * tw + xx // 8
+    np.testing.assert_array_equal(order[pos], yy * px + xx)
+
+
 @pytest.mark.parametrize("px", [8, 16, 32, 64])
 def test_butterfly_satd_equals_plain_satd(px):
     """Residuals from -(2^12 - 1) to 2^12 - 1, extremes included: the
@@ -271,10 +425,12 @@ def test_butterfly_satd_equals_plain_satd(px):
     prog = rdd._Program(64, 64, 4, 12, CPU)
     want = prog.satd(torch.from_numpy(res.astype(np.int32)), px).numpy()
     np.testing.assert_array_equal(model_hadamard_sums(res) // 16, want)
+    np.testing.assert_array_equal(model_hadamard_sums(res), model_first_hadamard_sums(res))
 
 
-@pytest.mark.parametrize("shape,speed,bd", [((64, 96), 6, 8), ((72, 100), 4, 10)],
-                         ids=["64x96-s6-8bit", "72x100-s4-10bit"])
+@pytest.mark.parametrize("shape,speed,bd", [((64, 96), 6, 8), ((72, 100), 4, 10), ((64, 96), 4, 12),
+                                             ((40, 136), 6, 12)],
+                         ids=["64x96-s6-8bit", "72x100-s4-10bit", "64x96-s4-12bit", "40x136-s6-12bit"])
 def test_satd_kernel_model_equals_plain_tables(shape, speed, bd):
     """The satd and delta tables of the whole frame (odd grids: blocks that
     overhang the plane read its clamped edge), exactly."""
@@ -292,7 +448,7 @@ def test_satd_kernel_model_equals_plain_tables(shape, speed, bd):
     assert {k for k, *_ in prog.meta["layout"]} >= {"satd", "delta"}
 
 
-@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("bd", [8, 10, 12])
 @pytest.mark.parametrize("txs", [4, 8, 16, 32, 64])
 def test_quant_model_matches_plain_quant_cost(txs, bd):
     """Every candidate mode's residual of a seeded plane through the
@@ -309,6 +465,72 @@ def test_quant_model_matches_plain_quant_cost(txs, bd):
     for got, want, rtol in ((dist, wd.numpy(), 1e-4 if txs > 32 else 1e-5), (rate, wr.numpy(), 1e-5)):
         off += int((np.abs(got - want) > rtol * np.abs(want)).sum())
     assert off <= 2 * res.shape[0] // 1000, f"{off} of {2 * res.shape[0]} entries outside tolerance"
+
+
+@pytest.mark.parametrize("bd", [8, 12])
+@pytest.mark.parametrize("txs", [4, 8, 16, 32, 64])
+def test_register_blocking_keeps_each_coefficient(txs, bd):
+    """The kernel's blocking (16 coefficients a pass; 4x4 tiles from M^T
+    and t1 transposed) runs each coefficient's FMA chain with the same
+    operands in the same order as the first design: bit for bit equal."""
+    src = _plane((txs * 3, txs * 4), bd, seed=txs * bd)
+    prog = rdd._Program(*src.shape, 4, bd, CPU)
+    blocks, ext = model_borders(src, txs, bd)
+    preds = model_predict(prog.tables[txs].numpy(), prog.n_var[txs], txs, bd, ext)[:13]
+    res = (blocks[None] - preds).reshape(-1, txs, txs)
+    basis = prog.basis[txs].numpy()
+    got, want = model_coefficients(res, txs, basis), model_first_coefficients(res, txs, basis)
+    assert got.dtype == want.dtype == f32
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("speed", [0, 4, 6])
+def test_dir_sources_are_the_candidates_with_the_same_words(speed):
+    """dir_src: per directional mode, the candidate variant whose table
+    words (kind, and taps for a directional kind) its delta 0 repeats; the
+    candidate is that mode itself."""
+    prog = rdd._Program(64, 96, speed, 8, CPU)
+    cand, dirs = prog.meta["cand_modes"], prog.meta["dir_modes"]
+    for px in prog.meta["sizes"]:
+        if ("delta", px) not in prog.offsets:
+            assert prog.dir_src[px] == []
+            continue
+        table, n_var = prog.tables[px].numpy(), prog.n_var[px]
+        assert prog.dir_src[px] == [cand.index(m) for m in dirs]
+        for d, v in enumerate(prog.dir_src[px]):
+            a, b = table[v], table[len(cand) + 7 * d]
+            assert a & 15 == b & 15
+            if a & 15 == rdd._DIR:
+                taps = lambda w: table[n_var + px + (w >> 4) * px * px :][: px * px]  # noqa: E731
+                np.testing.assert_array_equal(taps(a), taps(b))
+
+
+def test_dir_sources_without_a_candidate_are_computed():
+    """A delta group whose delta 0 no candidate repeats gets -1, and the
+    kernel's list then computes its delta 0."""
+    variants = ((0, None), (12, None)) + tuple(
+        (m, I.MODE_TO_ANGLE[m] + 3 * d) for m in (I.V_PRED, I.D45_PRED) for d in (0,) + rdd._DIR_DELTAS)
+    table = rdd._kernel_table(8, variants)
+    assert rdd._dir_sources(table, 2, 2, 8) == [-1, -1]
+    variants = ((I.D45_PRED, None), (I.V_PRED, None)) + variants[2:]
+    assert rdd._dir_sources(rdd._kernel_table(8, variants), 2, 2, 8) == [1, 0]
+
+
+@pytest.mark.parametrize("speed", [4, 6])
+def test_satd_kernel_skips_the_copies(speed):
+    """At speeds 4 and 6 the kernel computes the 13 candidates and the six
+    nonzero deltas of the six directional modes that are not V or H: 49 of
+    69 variants; the V and H groups (fault o) and every delta 0 are taken
+    from the sums they repeat."""
+    prog = rdd._Program(64, 96, speed, 8, CPU)
+    for px in prog.meta["sizes"]:
+        computed, source = satd_variants(prog, px)
+        assert len(computed) == 49 and prog.n_var[px] == 69
+        dirs = prog.meta["dir_modes"]
+        for d, mode in enumerate(dirs):
+            v0 = 13 + 7 * d
+            assert source[v0] == prog.meta["cand_modes"].index(mode)
+            assert all((v0 + k in source) == (mode in (I.V_PRED, I.H_PRED)) for k in range(1, 7))
 
 
 def _c_struct_fields(name):
@@ -385,6 +607,27 @@ def test_cpu_plane_takes_the_plain_version(prog6):
     assert out.shape == (prog6.meta["total"],) and out.dtype == torch.float32
     assert (rdd.rd_satd.launches, rdd.rd_quant.launches, rdd._Program.plain.runs["cpu"]) == (*before[:2],
                                                                                             before[2] + 1)
+
+
+def test_fault_p_only_the_plain_version_refuses_tf32(prog6):
+    """Reference fault p: under a TF32 matmul precision the program on a
+    CPU plane raises from its plain version (its matrix products need full
+    fp32), not before it; the kernels, which run none, are not refused."""
+    src = torch.from_numpy(_plane((64, 96), 8, seed=6))
+    qs, rq = {}, {}
+    for txs in prog6.meta["txs_cfg"]:
+        qs[txs], rq[txs] = _quant(txs, 8)
+    previous = torch.get_float32_matmul_precision()
+    runs = rdd._Program.plain.runs["cpu"]
+    torch.set_float32_matmul_precision("high")
+    try:
+        with pytest.raises(RuntimeError, match="plain version needs full fp32") as err:
+            prog6(src, 100, qs, rq)
+        assert err.traceback[-1].name == "plain"
+    finally:
+        torch.set_float32_matmul_precision(previous)
+    assert rdd._Program.plain.runs["cpu"] == runs
+    assert prog6(src, 100, qs, rq).shape == (prog6.meta["total"],)
 
 
 def test_fault_o_v_and_h_deltas_are_the_plain_copy(monkeypatch):
