@@ -190,7 +190,8 @@ Phases, each printed as it runs; any failure ends the run non-zero:
      16 and 16 on the per-frame route, 2 and 2 on the batched route.
 
 The last two lines are a JSON object describing each kernel, then
-{"ok": true, "device": {...}}.
+{"ok": true, "device": {...}}. Whatever the outcome, the run ends by
+stopping every process it started that is still alive (stop_children).
 """
 
 from __future__ import annotations
@@ -199,6 +200,7 @@ import json
 import math
 import os
 import pathlib
+import signal
 import subprocess
 import sys
 import tempfile
@@ -2243,6 +2245,80 @@ def check_bench(smi):
           f"{got}; {time.perf_counter() - t0:.3f} s; on {smi}", flush=True)
 
 
+PR_SET_CHILD_SUBREAPER = 36  # prctl option (linux/prctl.h)
+
+
+def adopt_orphans() -> None:
+    """Makes this process the child subreaper of what it starts: a
+    descendant whose parent exits becomes its child, not init's, so that
+    stop_children finds it."""
+    if sys.platform.startswith("linux"):
+        import ctypes
+
+        ctypes.CDLL(None, use_errno=True).prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0)
+
+
+def child_pids() -> list:
+    """The pids of this process's live children, read from /proc."""
+    me, pids = os.getpid(), []
+    for stat in pathlib.Path("/proc").glob("[0-9]*/stat"):
+        try:
+            fields = stat.read_text().rsplit(")", 1)[1].split()
+        except (OSError, IndexError):
+            continue  # gone meanwhile
+        if int(fields[1]) == me and fields[0] != "Z":
+            pids.append(int(stat.parent.name))
+    return pids
+
+
+def command_line(pid: int) -> str:
+    """The command line of process ``pid``, "" once it is gone."""
+    try:
+        return pathlib.Path(f"/proc/{pid}/cmdline").read_bytes().replace(b"\0", b" ").decode(errors="replace")[:200]
+    except OSError:
+        return ""
+
+
+def reap() -> None:
+    """Collects the exit status of every child that has ended."""
+    while True:
+        try:
+            pid, _ = os.waitpid(-1, os.WNOHANG)
+        except ChildProcessError:
+            return
+        if pid == 0:
+            return
+
+
+def stop_children() -> None:
+    """Stops every process this run started that is still alive: the
+    multiprocessing resource tracker (a spawn context starts it, and it
+    outlives the pools), then each remaining child, orphaned descendants
+    included, with SIGTERM and after 5 s SIGKILL; reaps them all."""
+    from multiprocessing import resource_tracker
+
+    tracker = resource_tracker._resource_tracker
+    if tracker._pid is not None:
+        print(f"chip_smoke: stopping the multiprocessing resource tracker, process {tracker._pid}", file=sys.stderr,
+              flush=True)
+    tracker._stop()
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        pids = child_pids()
+        for pid in pids:
+            print(f"chip_smoke: sending {sig.name} to child process {pid}: {command_line(pid)}", file=sys.stderr,
+                  flush=True)
+            try:
+                os.kill(pid, sig)
+            except ProcessLookupError:
+                pass
+        deadline = time.monotonic() + 5
+        while pids and time.monotonic() < deadline:
+            reap()
+            pids = child_pids()
+            time.sleep(0.05)
+    reap()
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -2674,4 +2750,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    adopt_orphans()
+    try:
+        code = main()
+    finally:
+        stop_children()
+    sys.exit(code)
