@@ -28,14 +28,18 @@ Phases, each printed as it runs; any failure ends the run non-zero:
      path, timed device-only as K1 is); the kernels line takes K1's
      numbers from the 768x512 plane's inverse row at n = 16 (1536
      blocks, K1's decode launch before K3 took it in);
- 3b. K2, the encode wavefront (one persistent launch per plane group),
-     on the card against the plain per-diagonal loop (torch.equal) for n
-     in {4, 8, 16, 32}, depths 8/10/12, speeds 0/3/6/9 and lossless, a
-     4032x3024 plane with more lanes than the cooperative grid holds, and
-     a plane one block wide; both timed per plane-group launch at the
-     main path's shapes (768x512 luma, P = 1; the 384x256 chroma pair,
-     P = 2), CUDA events around the call, the kernel also device-only
-     from torch.profiler, against the throughput and the chain bound;
+ 3b. K2, the encode wavefront (one persistent launch per plane group, a
+     candidate per slot of n threads): nvcc's register and spill report
+     of its instances and its resident CTAs an SM; on the card against the
+     plain per-diagonal loop (torch.equal) for n in {4, 8, 16, 32}, depths
+     8/10/12, speeds 0/3/6/9 and lossless, 4032x3024 planes added until
+     their lanes exceed the cooperative grid (resident_ctas), and a plane
+     one block wide; both timed per plane-group launch at the main path's
+     shapes (768x512 luma, P = 1; the 384x256 chroma pair, P = 2), CUDA
+     events around the call, the kernel also device-only, against the
+     throughput and the chain bound (the butterflies' multiply-adds, and
+     beside them the direct products' n^3); per 16x16 block device-only
+     in a plane one block high and in one one block wide;
  3c. K3, the decode wavefront (one persistent launch per plane group:
      every block's residual with K1's inverse for its signalled type, then
      lane groups of 4 lanes a CTA, two warps a lane), with the filter stage
@@ -479,8 +483,9 @@ def step_configs():
     """K2's configurations (n, depth, lossless, speed, search, (h, w), P):
     n in {4, 8, 16, 32}; depths 8/10/12 at speeds 0/3/6/9; lossless at 8
     and 12 bits; two breadth overrides, all on two 70x90 planes; then a
-    4032x3024 plane (189 lanes of 16x16 blocks, more than the cooperative
-    grid holds) and two planes one block wide (Cb = 1)."""
+    4032x3024 plane (189 lanes of 16x16 blocks; phase 3b adds planes until
+    the lanes exceed K2's cooperative grid) and two planes one block wide
+    (Cb = 1)."""
     cases = []
     for n in (4, 8, 16, 32):
         for depth in (8, 10, 12):
@@ -506,32 +511,70 @@ def seeded_planes(seed: int, depth: int, shape, n: int, p: int) -> torch.Tensor:
     return torch.from_numpy(np.stack([recon.pad_to_blocks(q, n) for q in planes]).astype(np.int32))
 
 
-def step_bound_ms(p: int, rb: int, cb: int, n: int, n_cand: int) -> tuple:
-    """(bound ms, 'operations' or 'bytes') of one K2 launch over a plane
-    group: the transforms' int32 multiply-adds (4 passes of n^3 per
-    candidate) over the whole card's IMAD rate, against the bytes (source
-    blocks read; levels, reconstruction, modes, symbols and the per-lane
-    progress counters written) over HBM."""
+def step_bound_ms(wavefront, p: int, rb: int, cb: int, cfg) -> tuple:
+    """(bound ms, 'operations' or 'bytes', the direct products' operation
+    bound ms) of one K2 launch over a plane group: the int32 multiply-adds
+    K2's passes do (``wavefront.search_multiply_adds``: the DCT's
+    butterflies, IDTX's diagonal, the direct product for ADST and WHT) over
+    the whole card's IMAD rate, against the bytes (source blocks read;
+    levels, reconstruction, modes, symbols and the per-lane progress
+    counters written) over HBM; and the same bound with every pass a
+    direct product (4 n^3 per candidate), the figure before the
+    butterflies."""
     blocks = p * rb * cb
-    imads = blocks * n_cand * 4 * n**3
+    n = cfg.n
+    imads = blocks * wavefront.search_multiply_adds(cfg)
+    direct = blocks * len(cfg.mode_set) * len(cfg.txs) * 4 * n**3
     nbytes = 4 * (blocks * n * n * 3 + 2 * blocks + p * rb)
     ops_ms, bytes_ms = imads / IMAD_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+    bound = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+    return (*bound, max(direct / IMAD_PER_S * 1e3, bytes_ms))
 
 
-def chain_bound_ms(rb: int, cb: int, n: int, n_cand: int) -> float:
+def chain_bound_ms(wavefront, rb: int, cb: int, cfg) -> tuple:
     """The least time of the longest dependency chain of one plane: its
-    rb + cb - 1 blocks one after another, each at one SM's IMAD rate."""
-    return (rb + cb - 1) * n_cand * 4 * n**3 / (IMAD_PER_S / 132) * 1e3
+    rb + cb - 1 blocks one after another, each at one SM's IMAD rate; with
+    K2's multiply-adds, and with the direct products' 4 n^3 a candidate."""
+    per_sm = IMAD_PER_S / 132
+    direct = len(cfg.mode_set) * len(cfg.txs) * 4 * cfg.n**3
+    return tuple((rb + cb - 1) * ops / per_sm * 1e3 for ops in (wavefront.search_multiply_adds(cfg), direct))
+
+
+def k2_build_report(build) -> list:
+    """nvcc's register, shared-memory and spill lines of K2's instances."""
+    lines, out = build.build_log.splitlines(), []
+    for i, line in enumerate(lines):
+        if "encode_wavefront_kernel" in line and "Compiling entry" in line:
+            out.append(line.strip())
+            out += [f.strip() for f in lines[i + 1:i + 4] if "registers" in f or "spill" in f]
+    return out
 
 
 def check_step(wavefront, recon, tables, dev, smi):
     """Phase 3b: K2 against the plain per-diagonal loop; timed per
     plane-group launch at the main path's shapes. Returns the kernel
     line's numbers for K2."""
+    from libavif_tpu_torch.ops import _build
+
+    for line in k2_build_report(_build):
+        print(f"[k2] nvcc: {line}", flush=True)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per_sm = {}
+    for n, speed, lossless in ((4, 6, False), (8, 6, False), (16, SPEED, False), (16, 0, False), (32, 6, False),
+                               (32, 6, True)):
+        cfg = recon.search_config(n, 8, lossless, 1, 1, speed)
+        per_sm[(n, speed, lossless)] = wavefront.resident_ctas(cfg, dev) / sms
+    print("[k2] resident CTAs an SM: " + ", ".join(
+        f"n={n} s{speed}{' lossless' if ll else ''} {v:g}" for (n, speed, ll), v in per_sm.items()) + f" ({sms} SMs)",
+          flush=True)
     configs = step_configs()
     worst = 0
+    photo = None
     for n, depth, lossless, speed, search, shape, p in configs:
+        if shape == (PHOTO_H, PHOTO_W):  # planes until the lanes exceed the cooperative grid
+            grid = wavefront.resident_ctas(recon.search_config(n, depth, lossless, 1, 1, speed, search), dev)
+            p = max(p, grid // (shape[0] // n) + 1)
+            photo = (n, shape, p, grid)
         src = seeded_planes(n * 7 + depth, depth, shape, n, p).to(dev)
         dc, ac = (1, 1) if lossless else tables.step_sizes(150, depth)
         kw = dict(n=n, depth=depth, lossless=lossless, speed=speed, search=search)
@@ -548,22 +591,23 @@ def check_step(wavefront, recon, tables, dev, smi):
                 raise AssertionError(f"K2 differs from its plain version: {name}, n={n} depth={depth} "
                                      f"lossless={lossless} speed={speed} search={search} {shape} P={p}, "
                                      f"max|diff| {diff}")
-    n, depth, _, speed, search, shape, p = configs[-2]
-    grid = wavefront.resident_ctas(recon.search_config(n, depth, False, 1, 1, speed, search), dev)
+        del src, plain, kernel
+    n, shape, p, grid = photo
     if not p * (shape[0] // n) > grid:
         raise AssertionError(f"K2: {p * (shape[0] // n)} lanes fit in the cooperative grid of {grid}")
     print(f"[k2] {len(configs)} configurations equal to the plain per-diagonal loop (torch.equal), "
-          f"one launch each; {shape[1]}x{shape[0]} at n={n}: {p * (shape[0] // n)} lanes on a cooperative "
-          f"grid of {grid} CTAs", flush=True)
+          f"one launch each; {p} planes of {shape[1]}x{shape[0]} at n={n}: {p * (shape[0] // n)} lanes on a "
+          f"cooperative grid of {grid} CTAs", flush=True)
 
     dc, ac = tables.step_sizes(150, 8)  # q75
     kw = dict(n=16, depth=8, lossless=False, speed=SPEED)
+    cfg = recon.search_config(16, 8, False, dc, ac, SPEED)
     numbers = {}
     for name, (h, w), p in (("luma", (H, W), 1), ("chroma", (H // 2, W // 2), 2)):
         src = seeded_planes(3, 8, (h, w), 16, p).to(dev)
         rb, cb = h // 16, w // 16
 
-        src_blocks, outs, cfg, _ = recon._encode_setup(src, dc, ac, 16, 8, False, SPEED, (None, None))
+        src_blocks, outs, step_cfg, _ = recon._encode_setup(src, dc, ac, 16, 8, False, SPEED, (None, None))
 
         def kernel():
             recon.encode_plane(src, dc, ac, **kw)
@@ -575,32 +619,39 @@ def check_step(wavefront, recon, tables, dev, smi):
         k1 = time_ms(kernel, 20)
         k2 = time_ms(kernel, 20)
         p2 = time_ms(plain, 2)
-        dev_ms, source = device_ms(lambda: wavefront.encode_wavefront(src_blocks, outs, cfg),
+        dev_ms, source = device_ms(lambda: wavefront.encode_wavefront(src_blocks, outs, step_cfg),
                                    "encode_wavefront_kernel", wavefront.encode_wavefront, 10)
-        bound, bound_by = step_bound_ms(p, rb, cb, 16, 13)
-        chain = chain_bound_ms(rb, cb, 16, 13)
+        bound, bound_by, direct = step_bound_ms(wavefront, p, rb, cb, cfg)
+        chain, chain_direct = chain_bound_ms(wavefront, rb, cb, cfg)
         diagonals = rb + cb - 1
         numbers[name] = dict(ms=dev_ms, max_abs_err=worst, call_ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
-                             bound_ms=bound, bound_by=bound_by, chain_bound_ms=chain)
+                             bound_ms=bound, bound_by=bound_by, chain_bound_ms=chain,
+                             direct_bound_ms=direct, direct_chain_bound_ms=chain_direct)
         per_diag = f"{dev_ms / diagonals:.5f} ms"
         print(f"[k2] {name} {w}x{h} P={p} s{SPEED} n=16: per launch (the whole plane group) kernel device "
               f"{dev_ms:.5f} ms ({source}), call "
               f"{(k1 + k2) / 2:.5f} ms (runs {k1:.5f}/{k2:.5f}), plain per-diagonal loop "
               f"{(p1 + p2) / 2:.5f} ms (runs {p1:.5f}/{p2:.5f}); throughput bound {bound:.5f} ms "
-              f"({bound_by}), chain bound {chain:.5f} ms ({diagonals} blocks at one SM's rate); per "
-              f"diagonal ({diagonals}) equivalent: device {per_diag}, call {(k1 + k2) / 2 / diagonals:.5f} ms; "
+              f"({bound_by}; {direct:.5f} ms with direct products), chain bound {chain:.5f} ms ({diagonals} "
+              f"blocks at one SM's rate; {chain_direct:.5f} ms with direct products); per diagonal "
+              f"({diagonals}) equivalent: device {per_diag}, call {(k1 + k2) / 2 / diagonals:.5f} ms; "
               f"CUDA events, order plain, kernel, kernel, plain; on {smi}", flush=True)
 
     # Where a block's time goes: a plane one block high (one CTA walks its
     # own lane and never waits) against one a block wide (every block
-    # waits for the lane above, on another SM).
+    # waits for the lane above, on another SM). Device-only: the median of
+    # CUDA event pairs around each launch behind a stream sleep.
     per_block = {}
     for name, (h, w) in (("row", (16, W)), ("column", (H, 16))):
         src = seeded_planes(5, 8, (h, w), 16, 1).to(dev)
-        per_block[name] = time_ms(lambda: recon.encode_plane(src, dc, ac, **kw), 20) / (h // 16 * (w // 16))
+        src_blocks, outs, step_cfg, _ = recon._encode_setup(src, dc, ac, 16, 8, False, SPEED, (None, None))
+        pairs = launch_ms(lambda: wavefront.encode_wavefront(src_blocks, outs, step_cfg), 20)
+        per_block[name] = pairs[len(pairs) // 2] / (h // 16 * (w // 16))
+    numbers["luma"]["block_us"] = {name: ms * 1e3 for name, ms in per_block.items()}
     print(f"[k2] per 16x16 block at s{SPEED}: {per_block['row'] * 1e3:.3f} us in a lane of {W // 16} "
           f"(no wait), {per_block['column'] * 1e3:.3f} us in a column of {H // 16} (a wait on another "
-          f"SM at each block); CUDA events over 20 launches, launch gaps included; on {smi}", flush=True)
+          f"SM at each block); device-only, the median of 20 CUDA event pairs behind a stream sleep, the "
+          f"progress counters' zeroing included; on {smi}", flush=True)
     return numbers
 
 
@@ -2043,8 +2094,8 @@ def check_batched_launches(wavefront, recon, tables, imgs, dev, smi):
             dev_ms, source = device_ms(launch, kernel_name, counter, iters)
             rows[kernel_name] = dict(ms=dev_ms, source=source, call_ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, p=p)
         enc, dec = rows["encode_wavefront_kernel"], rows["decode_wavefront_kernel"]
-        enc["bound_ms"], enc["bound_by"] = step_bound_ms(p, rb, cb, 16, 13)
-        enc["chain_bound_ms"] = chain_bound_ms(rb, cb, 16, 13)
+        enc["bound_ms"], enc["bound_by"], enc["direct_bound_ms"] = step_bound_ms(wavefront, p, rb, cb, step_cfg)
+        enc["chain_bound_ms"], enc["direct_chain_bound_ms"] = chain_bound_ms(wavefront, rb, cb, step_cfg)
         dec["bound_ms"], dec["bound_by"] = decode_bound_ms(p, rb, cb, 16)
         numbers[name] = rows
         for label, r in (("K2", enc), ("K3", dec)):
@@ -2660,6 +2711,10 @@ def main() -> int:
             "bound_ms": step["luma"]["bound_ms"],
             "bound_by": step["luma"]["bound_by"],
             "chain_bound_ms": step["luma"]["chain_bound_ms"],
+            # the same bounds with every pass a direct product (4 n^3 a candidate)
+            "direct_bound_ms": step["luma"]["direct_bound_ms"],
+            "direct_chain_bound_ms": step["luma"]["direct_chain_bound_ms"],
+            "block_us": step["luma"]["block_us"],  # phase 3b: a lane one block high, one a block wide
             "library_ms": None,  # no PyTorch call computes the fused mode search
             "chroma": step["chroma"],
             # phase 18: the 8-frame batch as one launch per plane group (luma P = 8, chroma P = 16)

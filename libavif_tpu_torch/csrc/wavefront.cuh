@@ -1,8 +1,7 @@
 // The persistent-wavefront scaffold of the port's wavefront kernels:
 // per-lane progress counters in device memory, their CTA-scope
 // counterparts in shared memory (the decode wavefront's lanes inside one
-// CTA), the neighbour fetch from the reconstruction written so far, and
-// the intra predictor (ops/intra.py).
+// CTA), and the intra predictor (ops/intra.py), by element and by column.
 //
 // A wavefront kernel walks a (P, Rb, Cb) grid of n x n blocks. A lane is
 // one block row of one plane, flattened as plane * Rb + r; a CTA walks
@@ -13,9 +12,11 @@
 // publishes.
 //
 // Ordering. The writer's threads store the block's outputs, meet at a
-// __syncthreads, and thread 0 fences and stores c + 1 with release
-// semantics. The reader's thread 0 spins with acquire loads, then its
-// warp meets at __syncwarp before reading the neighbours. The
+// __syncthreads (K2: the winning slot's warp and the helper warp at a
+// named barrier), and one thread stores c + 1 with release semantics
+// (K3 fences before it too). The reader's thread 0 spins with acquire
+// loads, then its warp meets at __syncwarp before reading the
+// neighbours. The
 // reconstruction is written during the kernel, so it is read with
 // ld.global.cg (L2), never through __ldg, `const __restrict__` or another
 // ld.global.nc path, which may return stale lines.
@@ -104,40 +105,22 @@ __device__ __forceinline__ void publish_progress(int* progress, int lane, int co
   store_release(progress + lane, count);
 }
 
-// Warp 0 of a CTA (every one of its 32 threads; tid is the thread's
-// index): the neighbours of block (r, c) of `lane` from `recon`
-// ((P * Rb, Cb, N, N)), as ops/wavefront.neighbors_from_outputs gives
-// them: the top row into s_top, the left column into s_left, and into
-// s_edge the corner and the DC predictor's value. `mid` stands for the
-// top when r = 0, for the left and the corner when c = 0, and for the
-// corner when r < 2. The caller has waited for (r - 1, c).
-template <int N>
-__device__ __forceinline__ void fetch_neighbors(const int32_t* recon, int lane, int r, int c,
-                                                int cb, int32_t mid, int32_t* s_top,
-                                                int32_t* s_left, int32_t* s_edge, int tid) {
-  constexpr int E = N * N;
-  constexpr int kLog2 = N == 4 ? 2 : N == 8 ? 3 : N == 16 ? 4 : 5;
-  const long long blk = (long long)lane * cb + c;
-  int32_t top = mid, left = mid;
-  if (tid < N) {
-    if (r > 0) top = __ldcg(recon + (blk - cb) * E + (N - 1) * N + tid);
-    if (c > 0) left = __ldcg(recon + (blk - 1) * E + tid * N + N - 1);
-    s_top[tid] = top;
-    s_left[tid] = left;
-  }
-  int sum = tid < N ? top + left : 0;  // at most 64 x 65535: no overflow
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-  if (tid == 0) {
-    s_edge[0] = (r >= 2 && c > 0) ? __ldcg(recon + (blk - 2 * cb) * E + E - 1) : mid;
-    s_edge[1] = (sum + N) >> (kLog2 + 1);
-  }
-}
-
 // Edge sample q of [topleft, edge[0..n-1], edge[n-1] repeated n times].
 template <int N>
 __device__ __forceinline__ int32_t extended(const int32_t* edge, int32_t tl, int q) {
   return q == 0 ? tl : edge[min(q - 1, N - 1)];
+}
+
+// A directional prediction from its packed table word
+// (use_top | idx << 1 | frac << 8, tables.dir_tables).
+template <int N>
+__device__ __forceinline__ int32_t directional(int32_t packed, const int32_t* top, const int32_t* left,
+                                               int32_t tl) {
+  const int idx = (packed >> 1) & 0x7f, frac = packed >> 8;
+  const int32_t* edge = (packed & 1) ? top : left;
+  const int32_t e0 = extended<N>(edge, tl, idx);
+  const int32_t e1 = extended<N>(edge, tl, min(idx + 1, 2 * N));
+  return (e0 * (32 - frac) + e1 * frac + 16) >> 5;
 }
 
 // Prediction of element (i, j) in intra mode `mode` (ops/intra.py). top,
@@ -174,13 +157,87 @@ __device__ __forceinline__ int32_t predict(int mode, int i, int j, const int32_t
       if (pl <= pt && pl <= ptl) return l;
       return pt <= ptl ? t : tl;
     }
-    default: {  // D45..D203: interpolate along the angle (tables.dir_tables)
-      const int32_t packed = dir[(mode - 3) * N * N + i * N + j];
-      const int idx = (packed >> 1) & 0x7f, frac = packed >> 8;
-      const int32_t* edge = (packed & 1) ? top : left;
-      const int32_t e0 = extended<N>(edge, tl, idx);
-      const int32_t e1 = extended<N>(edge, tl, min(idx + 1, 2 * N));
-      return (e0 * (32 - frac) + e1 * frac + 16) >> 5;
+    default:  // D45..D203: interpolate along the angle (tables.dir_tables)
+      return directional<N>(dir[(mode - 3) * N * N + i * N + j], top, left, tl);
+  }
+}
+
+// The extended edges of a block for predict_column: [left ext | top ext],
+// each 2N + 2 words [topleft, edge[0 .. N-1], edge[N-1] repeated N + 1
+// times], so that a directional tap q of `extended` is ext[q] with no
+// clamp (tables.dir_tables' idx <= 2N - 1, so q <= 2N).
+template <int N>
+constexpr int kExtWords = 2 * N + 2;
+
+// A directional table word for predict_column: the tap's offset into the
+// extended edges (the top's past the left's) | frac << 8, from the packed
+// (use_top, idx, frac) of `predict`.
+template <int N>
+__device__ __forceinline__ int32_t ext_word(int32_t use_top, int32_t idx, int32_t frac) {
+  return (use_top ? kExtWords<N> : 0) + min(idx, 2 * N) + (frac << 8);
+}
+
+// Rows row0 .. row0 + R - 1 of column j of the prediction in `mode` (the
+// formulas of `predict`), into pred, from the extended edges `ext` and the
+// directional words of ext_word: one branch on the mode for the column.
+template <int N, int R>
+__device__ __forceinline__ void predict_column(int mode, int j, int row0, const int32_t* ext, int32_t dc,
+                                               const int32_t* dir, const int32_t* weights, int32_t (&pred)[R]) {
+  const int32_t* left = ext + 1 + row0;  // left[q] is row row0 + q's
+  const int32_t* top = ext + kExtWords<N> + 1;
+  const int32_t tl = ext[0], tj = top[j];
+  switch (mode) {
+    case 0:
+#pragma unroll
+      for (int q = 0; q < R; ++q) pred[q] = dc;
+      break;
+    case 1:
+#pragma unroll
+      for (int q = 0; q < R; ++q) pred[q] = tj;
+      break;
+    case 2:
+#pragma unroll
+      for (int q = 0; q < R; ++q) pred[q] = left[q];
+      break;
+    case 9: {
+      const int32_t wj = weights[j], ln = ext[N], tn = top[N - 1];
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        const int32_t wi = weights[row0 + q];
+        pred[q] = (wi * tj + (256 - wi) * ln + wj * left[q] + (256 - wj) * tn + 256) >> 9;
+      }
+      break;
+    }
+    case 10: {
+      const int32_t ln = ext[N];
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        const int32_t wi = weights[row0 + q];
+        pred[q] = (wi * tj + (256 - wi) * ln + 128) >> 8;
+      }
+      break;
+    }
+    case 11: {
+      const int32_t wj = weights[j], tn = top[N - 1];
+#pragma unroll
+      for (int q = 0; q < R; ++q) pred[q] = (wj * left[q] + (256 - wj) * tn + 128) >> 8;
+      break;
+    }
+    case 12:
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        const int32_t l = left[q], base = tj + l - tl;
+        const int32_t pt = abs(base - tj), pl = abs(base - l), ptl = abs(base - tl);
+        pred[q] = (pl <= pt && pl <= ptl) ? l : (pt <= ptl ? tj : tl);
+      }
+      break;
+    default: {  // D45..D203: interpolate along the angle
+      const int32_t* d = dir + (mode - 3) * N * N + row0 * N + j;
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        const int32_t word = d[q * N], off = word & 0xff, frac = word >> 8;
+        pred[q] = (ext[off] * (32 - frac) + ext[off + 1] * frac + 16) >> 5;
+      }
     }
   }
 }

@@ -115,7 +115,7 @@ def load() -> ctypes.CDLL:
         lib.avt_encode_wavefront.restype = ctypes.c_int
         lib.avt_encode_wavefront.argtypes = [ctypes.c_void_p] * 9
         lib.avt_encode_wavefront_capacity.restype = ctypes.c_int
-        lib.avt_encode_wavefront_capacity.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.avt_encode_wavefront_capacity.argtypes = [ctypes.c_int] * 3
         lib.avt_decode_wavefront.restype = ctypes.c_int
         lib.avt_decode_wavefront.argtypes = [ctypes.c_void_p] * 10
         lib.avt_decode_wavefront_capacity.restype = ctypes.c_int

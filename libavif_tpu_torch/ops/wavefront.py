@@ -322,22 +322,152 @@ def encode_wavefront_reference(src_blocks, outs, cfg: StepConfig) -> None:
 # ------------------------------------------------------------------ the kernel
 
 
+# How K2 computes each pass y = M v of a searched transform (csrc/
+# encode_wavefront.cu, PassKind): the direct product; the diagonal; the
+# partial butterfly of a basis whose rows mirror their inputs (the forward
+# DCT: M[i][m-1-k] = (-1)^i M[i][k] at every level); that of a basis
+# whose columns mirror their outputs (the inverse DCT: M[m-1-i][k] =
+# (-1)^k M[i][k] at every level).
+PASS_DENSE, PASS_DIAGONAL, PASS_FORWARD_BUTTERFLY, PASS_INVERSE_BUTTERFLY = 0, 1, 2, 3
+# Search candidates k = m * T + t: at most 13 modes x 5 transforms.
+MAX_CAND = N_MODES * MAX_TX
+
+
+def butterfly_words(m: np.ndarray, inverse: bool) -> np.ndarray:
+    """The words of the partial butterfly that computes ``m @ v`` exactly
+    (mod 2^32: it only regroups the products' sum), level by level from
+    size n down to 1: each level's odd part, (m/2) x (m/2) row-major, then
+    the 1 x 1 base. Forward (``inverse`` False): the odd rows of the level
+    on the first half of its inputs, and the level below is its even rows
+    there. Inverse: the first half of its rows on its odd inputs, and the
+    level below is those rows on its even inputs. Raises ValueError
+    unless every level has the symmetry the butterfly relies on."""
+    cur = np.asarray(m, np.int64)
+    words = []
+    while cur.shape[0] > 1:
+        size, half = cur.shape[0], cur.shape[0] // 2
+        signs = (-1) ** np.arange(size)
+        if inverse:
+            if not np.array_equal(cur[::-1, :] * signs[None, :], cur):
+                raise ValueError(f"inverse butterfly: a {size}-point level of the basis does not mirror its outputs")
+            words.append(cur[:half, 1::2])
+            cur = cur[:half, 0::2]
+        else:
+            if not np.array_equal(cur[:, ::-1] * signs[:, None], cur):
+                raise ValueError(f"forward butterfly: a {size}-point level of the basis does not mirror its inputs")
+            words.append(cur[1::2, :half])
+            cur = cur[0::2, :half]
+    words.append(cur)
+    return np.concatenate([w.reshape(-1) for w in words])
+
+
+def butterfly_product(words: np.ndarray, v: np.ndarray, inverse: bool) -> np.ndarray:
+    """``M @ v`` over the last axis of int64 ``v`` from ``butterfly_words``,
+    in the kernel's order, every sum and product wrapped to int32: the
+    numpy model of ``avt::forward_butterfly`` / ``inverse_butterfly``."""
+    from .cuda_kernels import _wrap32
+
+    size = v.shape[-1]
+    if size == 1:
+        return _wrap32(v * int(words[0]))
+    half = size // 2
+    odd_w = words[: half * half].reshape(half, half)
+    rest = words[half * half:]
+    if inverse:
+        e = butterfly_product(rest, v[..., 0::2], True)
+        o = _wrap32(np.einsum("ik,...k->...i", odd_w, v[..., 1::2]))
+        return np.concatenate([_wrap32(e + o), _wrap32(e - o)[..., ::-1]], axis=-1)
+    s = _wrap32(v[..., :half] + v[..., ::-1][..., :half])
+    d = _wrap32(v[..., :half] - v[..., ::-1][..., :half])
+    out = np.empty_like(v)
+    out[..., 1::2] = _wrap32(np.einsum("ik,...k->...i", odd_w, d))
+    out[..., 0::2] = butterfly_product(rest, s, False)
+    return out
+
+
+def pass_words(m: np.ndarray, kind: int) -> np.ndarray:
+    """The n * n words of one pass's region of K2's table: the butterfly's
+    words (zero-padded), the diagonal (checked: every other entry 0), or
+    ``m`` row-major."""
+    n = m.shape[0]
+    if kind in (PASS_FORWARD_BUTTERFLY, PASS_INVERSE_BUTTERFLY):
+        w = butterfly_words(m, kind == PASS_INVERSE_BUTTERFLY)
+    elif kind == PASS_DIAGONAL:
+        if not np.array_equal(np.diag(np.diag(m)), m):
+            raise ValueError("diagonal pass: the basis has an entry off its diagonal")
+        w = np.diag(m)
+    else:
+        w = np.asarray(m, np.int64).reshape(-1)
+    return np.concatenate([w, np.zeros(n * n - w.size, np.int64)])
+
+
+# The 1-D basis of each searched transform's columns and rows.
+_TX_DIMS = {DCT_DCT: ("dct", "dct"), ADST_DCT: ("adst", "dct"), DCT_ADST: ("dct", "adst"),
+            ADST_ADST: ("adst", "adst"), IDTX: ("idtx", "idtx"), WHT_WHT: ("wht", "wht")}
+_DIM_KINDS = {"dct": (PASS_FORWARD_BUTTERFLY, PASS_INVERSE_BUTTERFLY), "idtx": (PASS_DIAGONAL, PASS_DIAGONAL),
+              "adst": (PASS_DENSE, PASS_DENSE), "wht": (PASS_DENSE, PASS_DENSE)}
+
+
+def pass_matrices(t: int, n: int) -> tuple:
+    """The four matrices M of transform ``t``'s passes, each applied as
+    ``M @ v`` to a column (the column passes) or a row (the row passes):
+    forward column, forward row, inverse column, inverse row."""
+    if t == WHT_WHT:
+        h = tables._hadamard(n)
+        return h, h, h.T, h.T
+    fck, frk = tables.kernels(t, n, inverse=False)
+    ick, irk = tables.kernels(t, n, inverse=True)
+    return fck, frk, ick.T, irk.T
+
+
+@functools.lru_cache(maxsize=None)
+def pass_plan(n: int, txs: tuple) -> tuple:
+    """(kinds, words): for each searched transform in order, the kind of
+    each of its four passes (``pass_matrices``' order: a DCT dimension
+    takes the butterflies, IDTX the diagonal, ADST and WHT the direct
+    product) and the n * n words of each pass's region. Raises ValueError
+    on a basis that fails its kind's check."""
+    kinds, words = [], []
+    for t in txs:
+        col, row = _TX_DIMS[t]
+        (fc, ic), (fr, ir) = _DIM_KINDS[col], _DIM_KINDS[row]
+        for m, kind in zip(pass_matrices(t, n), (fc, fr, ic, ir)):
+            kinds.append(kind)
+            words.append(pass_words(m, kind))
+    return tuple(kinds), tuple(words)
+
+
+def pass_multiply_adds(n: int, kind: int) -> int:
+    """The int32 multiply-adds of one pass of ``kind`` on one n-vector as K2
+    computes it: n^2 for the direct product, n for the diagonal, and for a
+    butterfly each level's (m/2)^2 odd part plus the 1 x 1 base (86 at
+    n = 16)."""
+    if kind == PASS_DENSE:
+        return n * n
+    if kind == PASS_DIAGONAL:
+        return n
+    total, m = 1, n
+    while m > 1:
+        total += (m // 2) ** 2
+        m //= 2
+    return total
+
+
+def search_multiply_adds(cfg: StepConfig) -> int:
+    """The int32 multiply-adds of one block's search as K2 computes it:
+    each candidate's four passes over the block's n vectors."""
+    kinds = pass_plan(cfg.n, cfg.txs)[0]
+    per_tx = [sum(pass_multiply_adds(cfg.n, k) for k in kinds[4 * t: 4 * t + 4]) for t in range(len(cfg.txs))]
+    return len(cfg.mode_set) * cfg.n * sum(per_tx)
+
+
 @functools.lru_cache(maxsize=None)
 def _tables_on(n: int, txs: tuple, device: str) -> torch.Tensor:
-    """One int32 buffer on ``device``: for each searched transform its
-    forward (ck, rk) and inverse (ck, rk) bases, each (n, n) and laid out
-    as K1 takes them; then for modes D45..D203 the directional
-    (use_top, idx, frac) tables; then the smooth weights."""
-    parts = []
-    for t in txs:
-        if t == WHT_WHT:
-            h = tables._hadamard(n)
-            parts += [h, h, h.T, h.T]
-        else:
-            fck, frk = tables.kernels(t, n, inverse=False)
-            ick, irk = tables.kernels(t, n, inverse=True)
-            parts += [fck, frk, ick.T, irk.T]
-    return _table_with_predictor(parts, n, device)
+    """One int32 buffer on ``device``: for each searched transform the n * n
+    words of each of its four passes (``pass_plan``); then for modes
+    D45..D203 the directional (use_top, idx, frac) tables; then the smooth
+    weights."""
+    return _table_with_predictor(list(pass_plan(n, txs)[1]), n, device)
 
 
 def _table_with_predictor(parts: list, n: int, device: str) -> torch.Tensor:
@@ -351,27 +481,58 @@ def _table_with_predictor(parts: list, n: int, device: str) -> torch.Tensor:
     return torch.from_numpy(flat).to(device)
 
 
+def division_magic(d: int) -> int:
+    """The uint32 reciprocal by which K2 divides without a division
+    instruction (``floor_div`` in csrc/encode_wavefront.cu): floor(2^32 /
+    d), or 2^32 - 1 for d = 1."""
+    if not 1 <= d < 1 << 31:
+        raise ValueError(f"division_magic: divisor {d} out of [1, 2^31)")
+    return min((1 << 32) // d, (1 << 32) - 1)
+
+
+def _int32(v: int) -> int:
+    return (v + (1 << 31)) % (1 << 32) - (1 << 31)
+
+
+def quant_bias(step: int, dc: bool) -> int:
+    """The deadzone's bias as the plain version computes it in int32:
+    ``step // 2`` for DC, ``step * 3 // 8`` (the product wrapped) for AC."""
+    return step // 2 if dc else _int32(step * 3) // 8
+
+
 class _StepParams(ctypes.Structure):
     """Mirror of ``StepParams`` in ``csrc/encode_wavefront.cu``."""
 
     _fields_ = [
         ("p", ctypes.c_int), ("rb", ctypes.c_int), ("cb", ctypes.c_int),
         ("n", ctypes.c_int), ("depth", ctypes.c_int), ("lossless", ctypes.c_int),
-        ("dc_step", ctypes.c_int), ("ac_step", ctypes.c_int), ("lam", ctypes.c_int),
-        ("n_modes", ctypes.c_int), ("n_tx", ctypes.c_int),
-        ("modes", ctypes.c_int * N_MODES), ("pred_modes", ctypes.c_int * N_MODES),
-        ("tx_syms", ctypes.c_int * MAX_TX),
+        ("dc_step", ctypes.c_int), ("ac_step", ctypes.c_int),
+        ("dc_bias", ctypes.c_int), ("ac_bias", ctypes.c_int),
+        ("dc_magic", ctypes.c_uint), ("ac_magic", ctypes.c_uint), ("rb_magic", ctypes.c_uint),
+        ("lam", ctypes.c_int), ("n_modes", ctypes.c_int), ("n_tx", ctypes.c_int),
+        ("cand", ctypes.c_int * MAX_CAND), ("pass_kind", ctypes.c_int * (4 * MAX_TX)),
     ]
+
+
+def candidate_word(cfg: StepConfig, k: int) -> int:
+    """Candidate k = m * T + t of the search as the kernel reads it: the
+    mode it predicts with | t << 4 | the mode symbol coded << 8 | the
+    transform symbol << 12."""
+    m, t = divmod(k, len(cfg.txs))
+    return cfg.predicted_modes[m] | t << 4 | cfg.mode_set[m] << 8 | cfg.tx_syms[t] << 12
 
 
 @functools.lru_cache(maxsize=None)
 def _params(cfg: StepConfig, p: int, rb: int, cb: int) -> _StepParams:
     """The launch's constant parameters (read, never written, per call)."""
     s = _StepParams(p, rb, cb, cfg.n, cfg.depth, int(cfg.lossless), cfg.dc_step, cfg.ac_step,
+                    quant_bias(cfg.dc_step, True), quant_bias(cfg.ac_step, False),
+                    division_magic(cfg.dc_step), division_magic(cfg.ac_step), division_magic(max(rb, 1)),
                     cfg.lam, len(cfg.mode_set), len(cfg.txs))
-    s.modes[: len(cfg.mode_set)] = cfg.mode_set
-    s.pred_modes[: len(cfg.mode_set)] = cfg.predicted_modes
-    s.tx_syms[: len(cfg.txs)] = cfg.tx_syms
+    k = len(cfg.mode_set) * len(cfg.txs)
+    s.cand[:k] = [candidate_word(cfg, i) for i in range(k)]
+    kinds = pass_plan(cfg.n, cfg.txs)[0]
+    s.pass_kind[: len(kinds)] = kinds
     return s
 
 
@@ -381,7 +542,7 @@ def resident_ctas(cfg: StepConfig, device) -> int:
     at the group's lane count."""
     device = torch.device(device)
     with _build.on_device(device):
-        got = _build.load().avt_encode_wavefront_capacity(cfg.n, len(cfg.txs))
+        got = _build.load().avt_encode_wavefront_capacity(cfg.n, len(cfg.mode_set), len(cfg.txs))
     if got <= 0:
         raise RuntimeError(f"encode_wavefront: occupancy query failed: CUDA error {-got}")
     return got
@@ -393,7 +554,9 @@ def encode_wavefront(src_blocks, outs, cfg: StepConfig) -> None:
     tx_types (P, Rb, Cb), levels and recon (P, Rb, Cb, n, n)). CUDA
     tensors take one cooperative launch on the current stream, with a
     zeroed (P * Rb + 1) int32 buffer of per-lane progress counters and an
-    error word; CPU tensors take the plain version."""
+    error word, and the launch's parameters (``_params``: the search, its
+    pass kinds, the division magics); CPU tensors take the plain
+    version."""
     _check(src_blocks, outs, cfg)
     if src_blocks.device.type == "cpu":
         encode_wavefront_reference(src_blocks, outs, cfg)
@@ -401,6 +564,8 @@ def encode_wavefront(src_blocks, outs, cfg: StepConfig) -> None:
     p, rb, cb = src_blocks.shape[:3]
     if p == 0:
         return
+    if any(t.data_ptr() % 16 for t in outs[2:]):
+        raise ValueError("encode_wavefront: levels and recon must start on 16 bytes (the kernel stores rows of 4)")
     dev = src_blocks.device
     table = _tables_on(cfg.n, cfg.txs, str(dev))
     progress = torch.zeros(p * rb + 1, dtype=_I32, device=dev)

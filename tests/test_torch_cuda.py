@@ -164,12 +164,64 @@ def test_encode_step_kernel_matches_plain_version(cuda, depth, lossless, speed, 
 
 @pytest.mark.cuda
 def test_wavefront_kernel_with_more_lanes_than_its_grid(cuda):
-    """189 lanes of 16x16 blocks: more than the card holds CTAs at once, so
-    a CTA encodes several lanes one after another."""
-    src = _step_planes(8, 16, (3024, 512), p=1).to(cuda)
+    """Planes of 189 lanes of 16x16 blocks, added until the lanes exceed
+    the CTAs the card holds at once, so a CTA encodes several lanes one
+    after another."""
     dc, ac = tables.step_sizes(150, 8)
-    assert src.shape[1] // 16 > wavefront.resident_ctas(recon.search_config(16, 8, False, dc, ac), cuda)
+    grid = wavefront.resident_ctas(recon.search_config(16, 8, False, dc, ac), cuda)
+    src = _step_planes(8, 16, (3024, 128), p=grid // 189 + 1).to(cuda)
+    assert src.shape[0] * src.shape[1] // 16 > grid
     _assert_kernel_equals_plain(src, dc, ac, n=16, depth=8, lossless=False, speed=6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("search", [(13, 5), (None, None)], ids=["breadths-13-5", "speed-0-ladder"])
+def test_k2_walks_65_candidates(cuda, search):
+    """Speed 0 at n = 16: 65 candidates, more than one round of slots, each
+    slot walking its candidates in index order."""
+    src = _step_planes(8, 16, (80, 112), p=2).to(cuda)
+    dc, ac = tables.step_sizes(150, 8)
+    assert len(recon.search_config(16, 8, False, dc, ac, 0, search).mode_set) * 5 == 65
+    _assert_kernel_equals_plain(src, dc, ac, n=16, depth=8, lossless=False, speed=0, search=search)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("speed", [0, 6])
+def test_k2_flat_plane_keeps_the_first_index_on_ties(cuda, speed):
+    """A flat plane: the modes predict alike and many candidates tie on
+    cost across slots and warps; the winner is the first index."""
+    src = torch.full((2, 64, 96), 77, dtype=torch.int32, device=cuda)
+    src[1, 32:, :] = 180  # a step: ties again below it
+    dc, ac = tables.step_sizes(150, 8)
+    _assert_kernel_equals_plain(src, dc, ac, n=16, depth=8, lossless=False, speed=speed)
+
+
+@pytest.mark.cuda
+def test_k2_lossless_12_bit_at_n_32(cuda):
+    """The Walsh-Hadamard pair's direct products at n = 32, a warp a
+    candidate, with 12-bit samples."""
+    src = _step_planes(12, 32, (96, 128), p=2).to(cuda)
+    _assert_kernel_equals_plain(src, 1, 1, n=32, depth=12, lossless=True, speed=6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["per_frame", "batched"])
+def test_k2_both_routes_of_an_8_frame_batch(cuda, route):
+    """An 8-frame batch: 2 K2 launches a frame on the per-frame route, 2
+    for the batch on the batched route (a one-device codec mesh), bytes
+    equal to the CPU port's."""
+    imgs = _frames(17, 8, w=128, h=96)
+    if route == "batched":
+        shard.set_default_codec_mesh(shard.make_codec_mesh(1))
+    try:
+        before = wavefront.encode_wavefront.launches
+        files = api.encode_batch(imgs, quality=75, speed=6, codec="native", device=cuda)
+        torch.cuda.synchronize()
+        launches = wavefront.encode_wavefront.launches - before
+    finally:
+        shard.set_default_codec_mesh(None)
+    assert launches == (16 if route == "per_frame" else 2)
+    assert files == api.encode_batch(imgs, quality=75, speed=6, codec="native", device="cpu")
 
 
 @pytest.mark.cuda

@@ -236,17 +236,28 @@ def test_all_thirteen_modes_predict_in_mode_set_order():
 
 @pytest.mark.parametrize("n", [4, 8, 16, 32])
 def test_kernel_table_layout(n):
-    """The buffer the kernel reads: each searched transform's forward and
-    inverse bases as K1 takes them, then the directional tables, then the
-    smooth weights."""
+    """The buffer the kernel reads: for each searched transform the words of
+    its forward and inverse passes (``wavefront.pass_plan``), which encode
+    the bases exactly as K1 takes them, then the directional tables, then
+    the smooth weights."""
     txs = recon.tx_search_set(0, n)
     table = wavefront._tables_on(n, txs, "cpu")
+    kinds = wavefront.pass_plan(n, txs)[0]
     e = n * n
+    eye = np.eye(n, dtype=np.int64)
     for k, t in enumerate(txs):
         fwd = cuda_kernels._bases(t, n, False, "cpu")
         inv = cuda_kernels._bases(t, n, True, "cpu")
         for q, m in enumerate((*fwd, *inv)):
-            assert torch.equal(table[(4 * k + q) * e:(4 * k + q + 1) * e].reshape(n, n), m)
+            words = table[(4 * k + q) * e:(4 * k + q + 1) * e].numpy().astype(np.int64)
+            kind = kinds[4 * k + q]
+            if kind == wavefront.PASS_DENSE:
+                got = words.reshape(n, n)
+            elif kind == wavefront.PASS_DIAGONAL:
+                got = np.diag(words[:n])
+            else:  # M @ e_i for every i: the butterfly's columns
+                got = wavefront.butterfly_product(words, eye, kind == wavefront.PASS_INVERSE_BUTTERFLY).T
+            np.testing.assert_array_equal(got, m.numpy())
     off = 4 * len(txs) * e
     for mode in range(3, 9):
         for q, m in enumerate(tables.dir_tables(mode, n)):
