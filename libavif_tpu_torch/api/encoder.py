@@ -36,6 +36,7 @@ from ..containers.items import (
 from ..containers.mini import write_mini
 from ..containers.write import OutputGroup, OutputItem, write_sequence, write_still
 from ..image import Image, are_grid_dimensions_valid
+from ..utils import trace
 from ..utils.exif import irot_imir_to_orientation
 
 from .. import default_device
@@ -751,19 +752,20 @@ def encode_batch(images: list[Image], quality: int = 60, speed: int = 6,
     graph of ``Encoder.write``. The default codec writes spec-conformant
     AV1; codec="native" the own format. Every color frame, then every
     non-opaque alpha plane, encodes in one batch on ``device``."""
-    device = torch.device(device) if device is not None else default_device()
-    params = FrameParams(quality=quality, speed=speed, codec=codec)
-    color = encode_frames_pipelined(images, params, device)
-    with_alpha = [i for i, im in enumerate(images) if im.alpha_plane is not None and not im.is_opaque()]
-    alpha = dict(zip(with_alpha, encode_frames_pipelined(
-        [Encoder._alpha_image(images[i]) for i in with_alpha], params, device
-    )))
-    out = []
-    for i, image in enumerate(images):
-        enc = Encoder(device)
-        enc._first_hdr = color[i][1]
-        alpha_obus = None
-        if i in alpha:
-            alpha_obus, enc._first_alpha_hdr = alpha[i]
-        out.append(write_still(enc._build_items(image, color[i][0], alpha_obus), primary_item_id=1))
-    return out
+    with trace.call("api.encode_batch"):
+        device = torch.device(device) if device is not None else default_device()
+        params = FrameParams(quality=quality, speed=speed, codec=codec)
+        color = encode_frames_pipelined(images, params, device)
+        with_alpha = [i for i, im in enumerate(images) if im.alpha_plane is not None and not im.is_opaque()]
+        alpha = dict(zip(with_alpha, encode_frames_pipelined(
+            [Encoder._alpha_image(images[i]) for i in with_alpha], params, device
+        )))
+        out = []
+        for i, image in enumerate(images):
+            enc = Encoder(device)
+            enc._first_hdr = color[i][1]
+            alpha_obus = None
+            if i in alpha:
+                alpha_obus, enc._first_alpha_hdr = alpha[i]
+            out.append(write_still(enc._build_items(image, color[i][0], alpha_obus), primary_item_id=1))
+        return out

@@ -19,6 +19,7 @@ import threading
 import numpy as np
 
 from .. import native as _native
+from ..utils import trace
 
 _I32P = ctypes.POINTER(ctypes.c_int32)
 _U8P = ctypes.POINTER(ctypes.c_uint8)
@@ -32,7 +33,11 @@ def _lib():
     # while the first is still building or loading; asking under one lock
     # makes every tile thread wait for the first load to finish.
     with _LOAD_LOCK:
-        lib = _native.load()
+        if _native._tried:
+            lib = _native.load()
+        else:  # the first load, which builds the library where it is not built
+            with trace.stage("ops.build.load"):
+                lib = _native.load()
     if lib is None:
         raise RuntimeError(
             "the C++ msac coder (libavif_tpu_torch/native/msac.cc) could not be built or loaded"
@@ -44,24 +49,27 @@ def encode_tile(levels: np.ndarray, modes: np.ndarray, n: int, tx_types=None) ->
     """levels: (Rb, Cb, n, n) int32, modes: (Rb, Cb) -> tile payload.
     tx_types: (Rb, Cb) transform symbols, or None for lossless (no tx
     symbols coded)."""
-    rb, cb = modes.shape
-    lv = np.ascontiguousarray(levels, dtype=np.int32)
-    md = np.ascontiguousarray(modes, dtype=np.int32)
-    tx = None if tx_types is None else np.ascontiguousarray(tx_types, dtype=np.int32)
-    if lv.shape != (rb, cb, n, n) or (tx is not None and tx.shape != (rb, cb)):
-        raise ValueError("encode_tile: levels/tx_types do not match the mode grid")
-    cap = lv.size * 8 + 1024  # worst case is a few bytes per coefficient
-    out = np.empty(cap, dtype=np.uint8)
-    size = _lib().avt_encode_tile(
-        lv.ctypes.data_as(_I32P),
-        md.ctypes.data_as(_I32P),
-        None if tx is None else tx.ctypes.data_as(_I32P),
-        rb, cb, n,
-        out.ctypes.data_as(_U8P), cap,
-    )
-    if size < 0:
-        raise RuntimeError(f"native tile encode failed ({size})")
-    return out[:size].tobytes()
+    with trace.stage("codec.entropy.encode_tile"):
+        rb, cb = modes.shape
+        lv = np.ascontiguousarray(levels, dtype=np.int32)
+        md = np.ascontiguousarray(modes, dtype=np.int32)
+        tx = None if tx_types is None else np.ascontiguousarray(tx_types, dtype=np.int32)
+        if lv.shape != (rb, cb, n, n) or (tx is not None and tx.shape != (rb, cb)):
+            raise ValueError("encode_tile: levels/tx_types do not match the mode grid")
+        cap = lv.size * 8 + 1024  # worst case is a few bytes per coefficient
+        out = np.empty(cap, dtype=np.uint8)
+        lib = _lib()
+        with trace.stage("codec.entropy.msac"):
+            size = lib.avt_encode_tile(
+                lv.ctypes.data_as(_I32P),
+                md.ctypes.data_as(_I32P),
+                None if tx is None else tx.ctypes.data_as(_I32P),
+                rb, cb, n,
+                out.ctypes.data_as(_U8P), cap,
+            )
+        if size < 0:
+            raise RuntimeError(f"native tile encode failed ({size})")
+        return out[:size].tobytes()
 
 
 def decode_tile(data: bytes, rb: int, cb: int, n: int, with_tx: bool = False):

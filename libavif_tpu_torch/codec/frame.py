@@ -67,6 +67,7 @@ from ..containers.obu import (
     write_sequence_header,
 )
 from ..image import Image
+from ..utils import trace
 from ..utils.streams import ROStream, RWStream
 
 from .. import default_device
@@ -341,13 +342,15 @@ def _encode_spec(images: list[Image], params: FrameParams,
 
 def _submit_plane_encode(pool, levels, modes, txs, n: int):
     """Per-entropy-tile futures for one plane."""
+    ranges = entropy.tile_col_ranges(modes.shape[1])
+    trace.count("codec.entropy.tiles", len(ranges))
     return [
         pool.submit(
-            entropy.encode_tile,
+            trace.carry(entropy.encode_tile),
             levels[:, c0:c1], modes[:, c0:c1], n,
             None if txs is None else txs[:, c0:c1],
         )
-        for c0, c1 in entropy.tile_col_ranges(modes.shape[1])
+        for c0, c1 in ranges
     ]
 
 
@@ -373,22 +376,23 @@ def encode_frames_pipelined(images: list[Image], params: FrameParams,
     n = params.tx_size
     lossless = params.lossless
     staged = []
-    for image in images:
-        if image.depth not in (8, 10, 12):
-            raise AvifError(Result.UNSUPPORTED_DEPTH, f"depth {image.depth}")
-        hdr = _sequence_header_for(image)
-        planes = []
-        for c in range(_coded_planes(image)):
-            plane = image.yuv_planes[c]
-            if plane is None:
-                raise AvifError(Result.NO_CONTENT, f"missing plane {c}")
-            planes.append(plane)
-        # int16 carries 10/12-bit samples exactly (torch has no uint16 math)
-        in_dtype = np.uint8 if image.depth == 8 else np.int16
-        padded = [recon.pad_to_blocks(p, n).astype(in_dtype) for p in planes]
-        geoms = tuple((p.shape[0] // n, p.shape[1] // n) for p in padded)
-        packed = np.concatenate([p.reshape(-1) for p in padded])
-        staged.append((hdr, geoms, image.depth, packed))
+    with trace.stage("codec.frame.stage"):
+        for image in images:
+            if image.depth not in (8, 10, 12):
+                raise AvifError(Result.UNSUPPORTED_DEPTH, f"depth {image.depth}")
+            hdr = _sequence_header_for(image)
+            planes = []
+            for c in range(_coded_planes(image)):
+                plane = image.yuv_planes[c]
+                if plane is None:
+                    raise AvifError(Result.NO_CONTENT, f"missing plane {c}")
+                planes.append(plane)
+            # int16 carries 10/12-bit samples exactly (torch has no uint16 math)
+            in_dtype = np.uint8 if image.depth == 8 else np.int16
+            padded = [recon.pad_to_blocks(p, n).astype(in_dtype) for p in planes]
+            geoms = tuple((p.shape[0] // n, p.shape[1] // n) for p in padded)
+            packed = np.concatenate([p.reshape(-1) for p in padded])
+            staged.append((hdr, geoms, image.depth, packed))
 
     search = (params.mode_breadth, params.tx_breadth)
     mesh = _batch_mesh(len(staged), device)
@@ -407,10 +411,12 @@ def encode_frames_pipelined(images: list[Image], params: FrameParams,
         fetches = []
         for hdr, geoms, depth, packed in staged:
             dc, ac = (1, 1) if lossless else step_sizes(params.qindex, depth)
-            result = recon.encode_frame_device(
-                upload(packed, device), dc, ac, geoms=geoms, n=n, depth=depth,
-                lossless=lossless, speed=params.speed, search=search,
-            )
+            src = upload(packed, device)
+            with trace.stage("codec.recon.enqueue"):
+                result = recon.encode_frame_device(
+                    src, dc, ac, geoms=geoms, n=n, depth=depth,
+                    lossless=lossless, speed=params.speed, search=search,
+                )
             fetches.append(start_fetch(result))
 
     # Drain in order: every tile of every frame goes to one host pool as

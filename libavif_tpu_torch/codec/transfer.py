@@ -10,12 +10,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import trace
+
 
 def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    t = torch.from_numpy(arr)
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
+    with trace.stage("codec.transfer.upload"):
+        t = torch.from_numpy(arr)
+        if device.type == "cuda":
+            return t.pin_memory().to(device, non_blocking=True)
+        return t.to(device)
 
 
 def start_fetch(result: torch.Tensor):
@@ -35,6 +38,7 @@ def finish_fetch(handle) -> np.ndarray:
     """Wait for a ``start_fetch`` copy and return it as numpy. Reading the
     pinned tensor before its event completes would read stale bytes."""
     host, event = handle
-    if event is not None:
-        event.synchronize()
+    with trace.stage("codec.transfer.fetch_wait"):
+        if event is not None:
+            event.synchronize()
     return host.numpy()

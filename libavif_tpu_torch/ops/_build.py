@@ -9,6 +9,10 @@ library's name carries a hash of the sources, the headers they include
 pass as ``c_void_p``.
 
 A missing ``nvcc`` or a failed build raises: there is no fallback.
+
+With ``utils.trace`` on, a build is the span ``ops.build.compile`` and
+counts in ``ops.build.compiles`` (0 where the library was cached: K2 was
+not built again), and the load is the span ``ops.build.load``.
 """
 
 from __future__ import annotations
@@ -22,9 +26,10 @@ import shutil
 import subprocess
 import tempfile
 import threading
-import time
 
 import torch
+
+from ..utils import trace
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -37,7 +42,6 @@ NVCC_FLAGS = (
 _LOCK = threading.Lock()
 _lib = None
 build_log = ""  # nvcc's output (ptxas register and shared-memory report)
-build_seconds = 0.0  # time of the build this process made, 0 if cached
 
 
 def _sources() -> list[pathlib.Path]:
@@ -64,11 +68,11 @@ def _library_path() -> pathlib.Path:
 
 
 def _compile(so_path: pathlib.Path) -> None:
-    global build_log, build_seconds
+    global build_log
     BUILD_DIR.mkdir(exist_ok=True)
     nvcc = _nvcc()
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    trace.count("ops.build.compiles")
+    with trace.stage("ops.build.compile"), tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [os.path.join(tmp, src.stem + ".o") for src in _sources()]
         procs = [
             subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj],
@@ -84,7 +88,6 @@ def _compile(so_path: pathlib.Path) -> None:
             link = subprocess.run([nvcc, "-shared", "-o", lib_tmp, *objs],
                                   capture_output=True, text=True, timeout=600)
             logs.append(link.stdout + link.stderr)
-        build_seconds = time.perf_counter() - t0
         build_log = "".join(logs)
         if link is None or link.returncode != 0:
             raise RuntimeError(f"nvcc failed:\n{build_log}")
@@ -103,7 +106,8 @@ def load() -> ctypes.CDLL:
         so_path = _library_path()
         if not so_path.exists():
             _compile(so_path)
-        lib = ctypes.CDLL(str(so_path))
+        with trace.stage("ops.build.load"):
+            lib = ctypes.CDLL(str(so_path))
         lib.avt_transform2d.restype = ctypes.c_int
         lib.avt_transform2d.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,

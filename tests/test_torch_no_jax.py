@@ -150,6 +150,7 @@ halo = exchange_cell_boundaries(sharded[2], mesh)
 shard.set_default_codec_mesh(mesh)
 batch_sharded = encode_batch([img, img], quality=75, speed=6, codec="native", device="cpu")
 shard.set_default_codec_mesh(None)
+trace.enable(True)
 with trace.device_trace("trace", device="cpu"):
     with trace.stage("entry"):
         fn, args = entry.entry(device="cpu")
@@ -313,18 +314,16 @@ def _tail(path: pathlib.Path, start: str) -> str:
     return text[text.index(start):]
 
 
-_DEVICE_TRACE = "@contextlib.contextmanager\ndef device_trace("
-
 # Lines of a copy that differ from the reference and are not import lines.
 FIXES = {
-    # the timers are copied; device_trace, from its decorator to the end
-    # of the file, is the port's own (torch.profiler)
+    # the first line is copied; from the second line of its docstring to
+    # the end of the file the module is the port's own: the recorder of
+    # spans and counters (off by default, per-thread buffers, no lock when
+    # recording) in place of the reference's accumulator, and device_trace
+    # on torch.profiler, which writes the recorder's spans into its trace
     "utils/trace.py": [
-        ("in; the TPU build provides JAX profiler traces + per-stage timers).",
-         "in; the port provides torch.profiler traces + per-stage timers)."),
-        ('    with device_trace("/tmp/jax-trace"):   # opens in TensorBoard/XProf',
-         '    with device_trace("trace-dir", device):   # trace-dir/trace.json, Chrome trace format'),
-        (_tail(REFERENCE / "utils/trace.py", _DEVICE_TRACE), _tail(PORT / "utils/trace.py", _DEVICE_TRACE)),
+        (_tail(REFERENCE / "utils/trace.py", "in; the TPU build provides"),
+         _tail(PORT / "utils/trace.py", "in; the port provides")),
     ],
     "containers/compliance.py": [(
         '__import__("libavif_tpu.constants", fromlist=["PixelFormat"])',
